@@ -164,9 +164,13 @@ class RunConfig:
             if _get(p, key, bool, False):
                 raise NotImplementedError(f"{key}=true: the port's kernels "
                                           "are float32 only")
+        # masskernel: the reference's integer codes, or (an extension the
+        # JAX package's parser lacks) "sph_ft", the closed-form W4 kernel
+        # of the headline configuration
+        mk = p.get("masskernel", "3")
         fwd = ForwardConfig(
             sfmodel=_get(p, "sfmodel", int, 1),
-            masskernel=_get(p, "masskernel", int, 3),
+            masskernel=mk if mk == "sph_ft" else int(mk),
             rsd=_get(p, "rsd_model", bool, False),
             rsd_planepar=_get(p, "planepar", bool, True),
             observer=(_get(p, "xobs", float, 0.0), _get(p, "yobs", float, 0.0),

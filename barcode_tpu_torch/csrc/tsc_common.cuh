@@ -26,9 +26,11 @@ __device__ __forceinline__ int pos_mod(int a, int b) {
 }
 
 // TSC weight of offset s in {-1, 0, 1}; dx = distance from the containing
-// cell's centre in cell units (assign.py:_tsc_axis_weight)
+// cell's centre in cell units (assign.py:_tsc_axis_weight).  Rounded as
+// written (no fused multiply-add), so every kernel that includes this
+// header, and the plain versions, get the same bits.
 __device__ __forceinline__ float tsc_w(float dx, int s) {
-  if (s == 0) return 0.75f - dx * dx;
+  if (s == 0) return __fsub_rn(0.75f, __fmul_rn(dx, dx));
   float a = 1.5f - fabsf(dx - (float)s);
   return 0.5f * (a * a);
 }

@@ -4,9 +4,13 @@ the sph_ft Fourier kernel.
 Port of barcode_tpu/forward/assign.py (main-path subset).  Two TSC deposits
 live here and must not be confused:
 
-  * `tsc_deposit` — the plain windowless 27-point scatter (`index_add_`),
-    the XLA-tier deposit of the JAX package (assign.py:174).  The mock
-    data, the diagnostic dumps and the tail particles use it.
+  * `tsc_deposit` — the plain windowless 27-point scatter, the XLA-tier
+    deposit of the JAX package (assign.py:174).  The mock data and the
+    mass-2/3 likelihood force use it; the tail particles use its 27-tap
+    arithmetic.  Both sum in 64-bit fixed point (`_exact_scatter`), so they
+    are bit-identical from call to call on every device, as the JAX
+    deposit is: a float `index_add_` on a CUDA tensor sums with atomics in
+    an order that changes from run to run.
   * `make_tsc_deposit_fast` — the sampler's deposit: a
     `torch.autograd.Function` whose forward is kernel K1
     (`tsc_kernels.tsc_deposit_window`) and whose backward is kernel K2
@@ -14,7 +18,7 @@ live here and must not be confused:
     split (assign.py:441-516).
 
 Positions are (3,) + grid or (C, 3) + grid for C chains.  NGP/CIC/SPH
-deposits wait for a later slice.
+deposits wait for a later slice (ROADMAP A.3).
 """
 from __future__ import annotations
 
@@ -79,24 +83,69 @@ def _batch_flat_offsets(batch: tuple, n: int, device, ndim: int):
         batch + (1,) * ndim)
 
 
+class _ExactScatter(torch.autograd.Function):
+    """out[idx_k] += src_k over k, summed in 64-bit fixed point.
+
+    Each contribution is rounded to a multiple of 1/scale (K1's rule,
+    `tsc_kernels._fixed_point_scale`) and added with an integer
+    `index_add_`.  Integer addition does not depend on the order, so the
+    result is bit-identical on every call and every device.  A cell that
+    receives a non-finite contribution reads NaN.  The backward is the
+    gather of the cotangent at each contribution's cell."""
+
+    @staticmethod
+    def forward(ctx, index, n_out: int, scale, *srcs):
+        acc = torch.zeros(n_out, dtype=torch.int64, device=scale.device)
+        n_bad = torch.zeros(n_out, dtype=torch.int32, device=scale.device)
+        for k, src in enumerate(srcs):
+            idx = index(k)
+            finite = torch.isfinite(src)
+            fixed = torch.round(torch.where(finite, src, 0.0).double() * scale)
+            acc.index_add_(0, idx, fixed.long())
+            n_bad.index_add_(0, idx, (~finite).int())
+        ctx.index = index
+        out = (acc.double() / scale).to(srcs[0].dtype)
+        return out.masked_fill_(n_bad > 0, float("nan"))
+
+    @staticmethod
+    def backward(ctx, cot):
+        return (None, None, None) + tuple(
+            cot[ctx.index(k)] for k in range(len(ctx.needs_input_grad) - 3))
+
+
+def _exact_scatter(index, n_out: int, srcs, max_sum_per_weight: int,
+                   weights=None):
+    """Deterministic sum of the flat contributions `srcs` into n_out cells;
+    `index(k)` gives the flat cells of srcs[k].  No cell's sum exceeds
+    max_sum_per_weight * max|weights| (1 for unit weights)."""
+    w = None if weights is None else weights.detach()
+    scale = tk._fixed_point_scale(w, max_sum_per_weight, srcs[0].device)
+    return _ExactScatter.apply(index, n_out, scale, *srcs)
+
+
 def tsc_deposit(pos, g: GridSpec, weights=None):
-    """Windowless 27-point TSC deposit (getDensity_TSC): one `index_add_`
-    per stencil offset; differentiable through the weights."""
+    """Windowless 27-point TSC deposit (getDensity_TSC), one scatter per
+    stencil offset, summed exactly (`_exact_scatter`); differentiable
+    through the positions and the weights."""
     base, dx = _tsc_base_frac(pos, g)
     ws = _tsc_weights(dx)
+    if weights is not None:
+        ws = [w * weights for w in ws]
     batch = tuple(pos.shape[:-4])
     c0 = _batch_flat_offsets(batch, g.N, pos.device, 3)
     bx, by, bz = base.unbind(-4)
-    out = torch.zeros(math.prod(batch) * g.N, dtype=pos.dtype,
-                      device=pos.device)
-    for w, (ox, oy, oz) in zip(ws, _TSC_OFFSETS):
+
+    def index(k):
+        ox, oy, oz = _TSC_OFFSETS[k]
         ix = torch.remainder(bx + ox, g.N1)
         iy = torch.remainder(by + oy, g.N2)
         iz = torch.remainder(bz + oz, g.N3)
-        idx = c0 + (ix * g.N2 + iy) * g.N3 + iz
-        if weights is not None:
-            w = w * weights
-        out.index_add_(0, idx.reshape(-1), w.reshape(-1))
+        return (c0 + (ix * g.N2 + iy) * g.N3 + iz).reshape(-1)
+
+    # each particle's 27 TSC weights sum to 1: a cell's total is at most
+    # g.N * max|weight|
+    out = _exact_scatter(index, math.prod(batch) * g.N,
+                         [w.reshape(-1) for w in ws], g.N, weights)
     return out.reshape(batch + g.shape)
 
 
@@ -159,13 +208,14 @@ def _tail_base_weights(pos_k, valid, g: GridSpec):
 
 
 def _tail_deposit(pos_k, valid, g: GridSpec):
-    """Exact 27-point TSC deposit of K tail particles per chain."""
+    """Exact 27-point TSC deposit of K tail particles per chain, summed in
+    fixed point (`_exact_scatter`)."""
     idx, w, _ = _tail_base_weights(pos_k, valid, g)
     batch = tuple(pos_k.shape[:-2])
     c0 = _batch_flat_offsets(batch, g.N, pos_k.device, 2)
-    out = torch.zeros(math.prod(batch) * g.N, dtype=pos_k.dtype,
-                      device=pos_k.device)
-    out.index_add_(0, (idx + c0).reshape(-1), w.reshape(-1))
+    flat = (idx + c0).reshape(-1)
+    out = _exact_scatter(lambda k: flat, math.prod(batch) * g.N,
+                         [w.reshape(-1)], pos_k.shape[-1])
     return out.reshape(batch + g.shape)
 
 

@@ -1,4 +1,5 @@
-"""Windowed TSC deposit (K1) and gradient gather (K2): kernels + plain versions.
+"""Windowed TSC deposit (K1, K1s) and gradient gather (K2): kernels + plain
+versions.
 
 Port of barcode_tpu/forward/pallas_deposit.py.  The TPU kernels there
 compute TSC with a *window* rule that the port must reproduce, because it
@@ -9,6 +10,12 @@ decides what a particle that breaks the halo contract contributes:
     [I*BX - hx, I*BX + BX + hx) x [J*BY - hy, ...), x/y wrapping through
     +-N copies of the particle grid.  A violator deposits PARTIAL mass.
     Effective halos: hx rounded by `_round_halo(hx, BX)`, hy tight.
+  * K1s, `tsc_deposit_window(..., stream=True)` (TPU: the streamed-window
+    body of `tsc_deposit_pallas(stream=True)`): the same function as K1,
+    bit for bit, computed by a pull kernel whose thread-block clusters own
+    their output columns in shared memory and stream each window through
+    it.  `stream=None` selects it exactly where the JAX package selects its
+    streamed kernel (`stream_selected`).
   * K2 `tsc_gather_grads_window` (TPU: `tsc_gather_grads_pallas`): the TSC
     value and three position derivatives (divided by the cell size) of a
     field, counting only taps inside the field window of the particle's
@@ -18,9 +25,11 @@ decides what a particle that breaks the halo contract contributes:
 Each wrapper takes a CPU tensor to its plain PyTorch version, written with
 the same window semantics (the tests hold these against the Pallas kernels
 in interpret mode), and a CUDA tensor to its hand-written CUDA kernel
-(`csrc/tsc_deposit.cu`, `csrc/tsc_gather.cu`).  There is no fallback: a
-CUDA tensor launches the kernel or raises.  Each wrapper counts its kernel
-launches in its `launches` attribute.
+(`csrc/tsc_deposit.cu`, `csrc/tsc_deposit_stream.cu`, `csrc/tsc_gather.cu`).
+There is no fallback: a CUDA tensor launches the kernel or raises.  Each
+kernel's launches are counted in the `launches` attribute of its launcher:
+`tsc_deposit_window` (K1), `tsc_deposit_window_stream` (K1s) and
+`tsc_gather_grads_window` (K2).
 
 Positions are (3,) + grid or (C, 3) + grid for C chains (one launch covers
 all chains); weights and fields are grid or (C,) + grid.
@@ -65,9 +74,9 @@ def _sub_tile(T: int, weight: int, budget_bytes: int = 6 << 20) -> int:
     return max(t, 1)
 
 
-# the JAX package's deposit-block gate (pallas_deposit.py:134-169); the port
-# keeps it only so `auto_block_dep` picks the same block, hence the same
-# windows, as the TPU path
+# the JAX package's deposit gates (pallas_deposit.py:134-169): the port keeps
+# them so `auto_block_dep` picks the same block, hence the same windows, and
+# `stream_selected` the same kernel (K1 or K1s) as the TPU path
 DEP_VMEM_BUDGET = 10 << 20
 STREAM_RS = 8
 
@@ -85,6 +94,15 @@ def deposit_working_set_bytes(g: GridSpec, halo, block_dep: tuple,
     window = nc * rows * WY * g.N3 * 4
     TS = _sub_tile(WY * g.N3, g.N3 + nxy)
     return window + TS * (g.N3 + nxy) * 4 + nxy * g.N3 * 4
+
+
+def stream_selected(g: GridSpec, halo, block: tuple,
+                    weighted: bool = False) -> bool:
+    """The JAX package's choice of its streamed deposit body
+    (pallas_deposit.py:815-817): the full window's working set over
+    DEP_VMEM_BUDGET.  K1s runs wherever this is True."""
+    return deposit_working_set_bytes(g, halo, block,
+                                     weighted=weighted) > DEP_VMEM_BUDGET
 
 
 # ---------------------------------------------------------------------------
@@ -340,25 +358,37 @@ def _fixed_point_scale(weights, n_per_chain: int, device):
     return torch.exp2(e)
 
 
-def tsc_deposit_window(pos, g: GridSpec, halo=4, block=(8, 8), weights=None):
-    """K1: windowed TSC deposit (TPU: pallas_deposit.tsc_deposit_pallas).
+def tsc_deposit_window(pos, g: GridSpec, halo=4, block=(8, 8), weights=None,
+                       stream=None):
+    """K1 or K1s: windowed TSC deposit (TPU: pallas_deposit.tsc_deposit_pallas).
 
     `halo` is the requested contract (int or (hx, hy)); hx is rounded as
-    on the TPU.  Returns grid or (C,) + grid float32.  CPU tensors take the
-    plain version; CUDA tensors launch csrc/tsc_deposit.cu."""
+    on the TPU.  `stream=None` picks K1s where the JAX package streams
+    (`stream_selected`), K1 elsewhere; True/False force the choice, as the
+    JAX argument does.  Returns grid or (C,) + grid float32.
+
+    CPU tensors take the plain version, `tsc_deposit_window_plain`, for
+    either choice: the TPU's two bodies compute one function, and the JAX
+    package's tests hold both against one reference
+    (tests/test_pallas_deposit.py:173-195).  CUDA tensors launch
+    csrc/tsc_deposit.cu (K1) or csrc/tsc_deposit_stream.cu (K1s)."""
     hx, hy = _halo_pair(halo)
     hx = _round_halo(hx, block[0])
     _check_positions(pos, g, hx, hy, block)
+    if stream is None:
+        stream = stream_selected(g, (hx, hy), block, weights is not None)
     if pos.device.type == "cpu":
         return tsc_deposit_window_plain(pos, g, (hx, hy), block, weights)
     if pos.device.type != "cuda":
         raise ValueError(f"unsupported device {pos.device}")
-    from barcode_tpu_torch import cuda_build
-
     batch = tuple(pos.shape[:-4])
     _check_tensor("pos", pos, pos.shape, pos.device)
     if weights is not None:
         _check_tensor("weights", weights, batch + g.shape, pos.device)
+    if stream:
+        return tsc_deposit_window_stream(pos, g, (hx, hy), block, weights)
+    from barcode_tpu_torch import cuda_build
+
     lib, _ = cuda_build.load()
     C = batch[0] if batch else 1
     scale = _fixed_point_scale(weights, g.N, pos.device)
@@ -366,17 +396,68 @@ def tsc_deposit_window(pos, g: GridSpec, halo=4, block=(8, 8), weights=None):
     bad = torch.zeros(C, dtype=torch.int32, device=pos.device)
     rho = torch.empty(batch + g.shape, dtype=torch.float32, device=pos.device)
     with torch.cuda.device(pos.device):
-        stream = torch.cuda.current_stream().cuda_stream
+        stream_ptr = torch.cuda.current_stream().cuda_stream
         status = lib.tsc_deposit_window_launch(
             pos.data_ptr(), weights.data_ptr() if weights is not None else None,
             scale.data_ptr(), acc.data_ptr(), bad.data_ptr(), rho.data_ptr(),
-            *_launch_args(g, C), block[0], block[1], hx, hy, stream)
+            *_launch_args(g, C), block[0], block[1], hx, hy, stream_ptr)
     cuda_build.check(lib, status, "tsc_deposit_window")
     tsc_deposit_window.launches += 1
     return rho
 
 
 tsc_deposit_window.launches = 0
+
+# K1s's accumulator tile: BX*BY*TZ int64 cells, 64 KB of shared memory where
+# a cluster of at most STREAM_CLUSTER_MAX tiles covers the z column (TZ = 32
+# z cells for the (16, 16) block at N3 = 256), at most 128 KB otherwise
+STREAM_TILE_CELLS = 8192
+STREAM_TILE_CELLS_MAX = 16384
+STREAM_CLUSTER_MAX = 8
+
+
+def stream_tile_z(g: GridSpec, block: tuple) -> int:
+    """K1s's z extent per output tile: the z tiles of one (BX, BY) column
+    form one thread-block cluster of at most STREAM_CLUSTER_MAX blocks."""
+    nxy = block[0] * block[1]
+    tz = max(-(-g.N3 // STREAM_CLUSTER_MAX),
+             min(g.N3, max(1, STREAM_TILE_CELLS // nxy)))
+    if nxy * tz > STREAM_TILE_CELLS_MAX:
+        raise ValueError(f"block {block} at N3={g.N3} is too large for K1s's "
+                         "shared-memory tiles")
+    return tz
+
+
+def tsc_deposit_window_stream(pos, g: GridSpec, halo, block: tuple,
+                              weights=None):
+    """K1s launcher: `tsc_deposit_window(..., stream=True)` on CUDA tensors
+    (csrc/tsc_deposit_stream.cu).  `halo` is the (hx, hy) pair with hx
+    already rounded; inputs are checked by the caller."""
+    from barcode_tpu_torch import cuda_build
+
+    hx, hy = halo
+    batch = tuple(pos.shape[:-4])
+    C = batch[0] if batch else 1
+    tz = stream_tile_z(g, block)
+    lib, _ = cuda_build.load()
+    aligned = all(t is None or t.data_ptr() % 16 == 0 for t in (pos, weights))
+    vec = 4 if g.N3 % 4 == 0 and aligned else 1
+    scale = _fixed_point_scale(weights, g.N, pos.device)
+    bad = torch.zeros(C, dtype=torch.int32, device=pos.device)
+    rho = torch.empty(batch + g.shape, dtype=torch.float32, device=pos.device)
+    with torch.cuda.device(pos.device):
+        stream_ptr = torch.cuda.current_stream().cuda_stream
+        status = lib.tsc_deposit_stream_launch(
+            pos.data_ptr(), weights.data_ptr() if weights is not None else None,
+            scale.data_ptr(), bad.data_ptr(), rho.data_ptr(),
+            *_launch_args(g, C), block[0], block[1], hx, hy, tz, vec,
+            stream_ptr)
+    cuda_build.check(lib, status, "tsc_deposit_window_stream")
+    tsc_deposit_window_stream.launches += 1
+    return rho
+
+
+tsc_deposit_window_stream.launches = 0
 
 
 def tsc_gather_grads_window(field, pos, g: GridSpec, halo=4, block=(8, 8),

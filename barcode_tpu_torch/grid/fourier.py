@@ -123,6 +123,23 @@ def convolve_inv_corr(x, g: GridSpec, corr_rfft):
     return irfft3(_inv_corr_fac(g, corr_rfft) * rfft3(x), g)
 
 
+def smooth(x, g: GridSpec, scale: float, filtertype: int = 1):
+    """Fourier-space smoothing (fourier.py:213-233): 1 Gaussian
+    exp(-k^2 r^2 / 2), 2 top-hat k <= scale, 3 erfc transition of width
+    0.3 around k = scale."""
+    k2 = k_squared(g, dtype=x.dtype, device=x.device)
+    if filtertype == 1:
+        K = torch.exp(-k2 * (scale * scale) / 2.0)
+    elif filtertype == 2:
+        K = (torch.sqrt(k2) <= scale).to(x.dtype)
+    elif filtertype == 3:
+        u = (torch.sqrt(k2) - scale) / (math.sqrt(2.0) * 0.3)
+        K = torch.special.erfc(u)
+    else:
+        raise ValueError(f"unknown filtertype {filtertype}")
+    return irfft3(K * rfft3(x), g)
+
+
 # ---------------------------------------------------------------------------
 # Power-spectrum measurement
 # ---------------------------------------------------------------------------

@@ -1,19 +1,24 @@
-"""Session runner: model assembly, mock data, the sampling loop and dumps.
+"""Session runner: model assembly, mock data, the sampling loop, dumps,
+diagnostics, checkpoint/resume and the reference's file-based restart.
 
-Port of barcode_tpu/runner.py (`Runner.__init__`, `setup`,
-`_resolve_auto_halo`, `_compute_mass` for mass type 1, `dump_sample`,
-`_log_attempts`, `run`), parity: reference barlib/src/barcoderunner.cc and
-barcode/main.cc.  Chains are batched on one device; chain 0's outputs use
-the reference's file names (deltaLAG_<i> etc.).
+Port of barcode_tpu/runner.py, parity: reference barlib/src/barcoderunner.cc
+and barcode/main.cc.  Chains are batched on one device; chain 0's outputs
+use the reference's file names (deltaLAG_<i> etc.).
 
 Differences from the JAX runner:
-  * randomness comes from one `torch.Generator` seeded with conf.seed;
-  * checkpoint/restore, restore_from_dumps, the perf-log replay, the live
-    dashboard and mass types other than 1 wait for a later slice.
+  * randomness comes from one `torch.Generator` seeded with conf.seed; the
+    checkpoint saves its state, and restores only on the device type that
+    wrote it (the generator states of CUDA and CPU differ);
+  * the checkpoint stores the chain state by field name instead of the JAX
+    pytree's leaf order; the dumps and performance_log.txt keep the
+    reference's formats, so a run dumped by the JAX package restarts here
+    through `restore_from_dumps`.
 """
 from __future__ import annotations
 
 import dataclasses
+import json
+import time
 from pathlib import Path
 
 import numpy as np
@@ -26,12 +31,17 @@ from barcode_tpu_torch.config import RunConfig
 from barcode_tpu_torch.device import resolve
 from barcode_tpu_torch.grid import fourier
 from barcode_tpu_torch.forward import tsc_kernels
-from barcode_tpu_torch.forward.lag2eul import displaced_positions, lag2eul
+from barcode_tpu_torch.forward.lag2eul import (displaced_positions, kernel_h,
+                                               lag2eul)
+from barcode_tpu_torch.model import likelihoods
 from barcode_tpu_torch.model.likelihoods import ObsData
+from barcode_tpu_torch.model.posterior import make_psi_force
 from barcode_tpu_torch.hmc import mass as mass_mod, sampler
 from barcode_tpu_torch.hmc.state import ChainState
 from barcode_tpu_torch.protocol import Protocols
-from barcode_tpu_torch.utils.metrics import SamplerMetrics, check_finite, split_rhat
+from barcode_tpu_torch.utils.dashboard import Dashboard
+from barcode_tpu_torch.utils.metrics import (SamplerMetrics, check_finite,
+                                             effective_sample_size, split_rhat)
 
 PERFLOG_COLUMNS = [
     "accepted", "epsilon", "Neps", "dH", "dK", "dE",
@@ -66,7 +76,11 @@ class Runner:
         self._protocols = Protocols(self.dir)
         self._truth_spec = None
         self._dump_cursor = 0
+        self._mass_at_sample = 0
         self._psi_trace: list[np.ndarray] = []
+        # wall-clock stamp per trace row: diagnostics() divides the ESS of
+        # the post-warmup half by the time that half took
+        self._trace_t: list[float] = []
         self._stall_acc = -1
         self._stall_attempts = 0
 
@@ -184,7 +198,7 @@ class Runner:
 
     def _initial_guess(self):
         """make_initial_guess (barcoderunner.cc:207-247): 0 zero, 1 file,
-        2 GRF, 4 zero + 0.1 noise (3, the smoothed GRF, waits)."""
+        2 GRF, 3 smoothed GRF, 4 zero + 0.1 noise."""
         conf = self.conf
         ig = conf.initial_guess
         if ig == 0:
@@ -193,16 +207,49 @@ class Runner:
             return torch.as_tensor(
                 bio.read_array(self.dir / conf.initial_guess_file, self.g.shape),
                 device=self.device)
-        if ig == 2:
-            return random_fields.grf(self.generator, self.g, self.obs.power)
+        if ig in (2, 3):
+            s = random_fields.grf(self.generator, self.g, self.obs.power)
+            if ig == 3:
+                s = fourier.smooth(s, self.g,
+                                   conf.initial_guess_smoothing_scale,
+                                   conf.initial_guess_smoothing_type)
+            return s
         if ig == 4:
             return 0.1 * random_fields.white_noise(self.generator, self.g)
-        raise NotImplementedError(f"initial_guess {ig} is not ported yet")
+        raise ValueError(f"invalid initial_guess {ig}")
 
     def _compute_mass(self):
+        """The mass of conf.hmc.mass_type at the current state
+        (runner.py:215-229): types 2/3 from chain 0's likelihood force,
+        type 60 switches from type 0 at burn-in."""
         hc = self.conf.hmc
-        return mass_mod.compute_mass(self.g, hc.mass_type, self.obs.power,
-                                     mass_factor=hc.mass_factor)
+        force = None
+        if hc.mass_type in (2, 3):
+            force = self._likelihood_force(self.current_signal())
+        burned_in = (self.states is not None and
+                     int(self.states.accepted.min()) >= hc.s_eps_total(self.g.N))
+        return mass_mod.compute_mass(
+            self.g, hc.mass_type, self.obs.power, nbin=self.conf.N_bin,
+            likeli_force=force, mass_factor=hc.mass_factor,
+            window=self.obs.window, noise=self.obs.noise,
+            kernel_h=kernel_h(self.conf.model.forward, self.g),
+            burned_in=burned_in)
+
+    def _likelihood_force(self, signal):
+        """grad of psi_likelihood at `signal` (runner.py:231-248), through
+        the windowless deposit as in the JAX runner: the force only seeds
+        the mass-2/3 preconditioner spectrum."""
+        mc = self.conf.model
+        fwd = dataclasses.replace(mc.forward, pallas_deposit=False)
+        with torch.enable_grad():
+            s = signal.detach().requires_grad_(True)
+            if mc.likelihood == 3:
+                psi = likelihoods.grf_psi(s, self.obs)
+            else:
+                dx = lag2eul(mc.deltaQ_factor * s, self.g, fwd, self.gp)
+                psi = likelihoods.likelihood_psi(mc.likelihood, dx, self.obs)
+            (grad,) = torch.autograd.grad(psi, s)
+        return grad
 
     def current_signal(self, chain: int = 0):
         return self.states.delta[chain]
@@ -280,18 +327,23 @@ class Runner:
 
     def run(self, n_samples: int | None = None, max_attempts: int = 10**9,
             log: bool = True, progress_every: int = 10,
-            nan_check: bool = False, rhat_stop: float | None = None):
+            nan_check: bool = False, rhat_stop: float | None = None,
+            dashboard: bool | None = None):
         """Sample until every chain has >= n_samples accepted samples (the
         reference's N_Gibbs) or max_attempts attempts ran, in batches of
         `attempt_batch`; dumps chain-0 fields every `outnum` samples
         (runner.py:310-437).  nan_check aborts on non-finite state;
         rhat_stop also stops once the split R-hat of the psi traces drops
-        below it."""
+        below it; dashboard draws the live candidate table (None: on a
+        TTY)."""
         conf = self.conf
         n_samples = n_samples if n_samples is not None else conf.N_Gibbs
         attempts_done = 0
         if self.metrics is None:
             self.metrics = SamplerMetrics()
+        dash = Dashboard(title=f"barcode_tpu_torch  N={self.g.N1}  "
+                         f"L={self.g.L1:g}", force=dashboard)
+        rhat = float("inf")
         while attempts_done < max_attempts:
             if (self.dir / "fastexit").exists():
                 print("fastexit sentinel found — stopping cleanly")
@@ -301,6 +353,7 @@ class Runner:
             attempts_done += self.attempt_batch
             self.metrics.update(stats)
             self._psi_trace.append(_host(self.states.psi))
+            self._trace_t.append(time.time())
             if nan_check:
                 check_finite(self.states, f"after attempt {attempts_done}")
             if log:
@@ -313,6 +366,16 @@ class Runner:
                 if wf or wp:
                     self.dump_sample(i, fields=wf, spectrum=wp)
             self._dump_cursor = max(self._dump_cursor, min(acc0, n_samples))
+            # mass recompute cadence (Hamiltonian_mass reload,
+            # HMC.cc:387-424; massnum_burn before / massnum_post after
+            # burn-in, 0 = never): only the signal-dependent masses change
+            hc = conf.hmc
+            if hc.mass_type in (2, 3, 60):
+                burned = acc0 >= hc.s_eps_total(self.g.N)
+                cadence = hc.massnum_post if burned else hc.massnum_burn
+                if cadence > 0 and acc0 - self._mass_at_sample >= cadence:
+                    self.mass = self._compute_mass()
+                    self._mass_at_sample = acc0
             min_acc = int(accepted.min())
             # itmax: attempt cap per sample (HMC.cc:431); the reference
             # recomputes the mass and retries (sample_maker.cc:17-34)
@@ -328,7 +391,11 @@ class Runner:
                                   "and retrying")
                         self.mass = self._compute_mass()
                         self._stall_attempts = 0
-            if log and attempts_done % (self.attempt_batch * progress_every) == 0:
+            if dash.enabled:
+                dash.update(stats, self.states, self.metrics.summary(),
+                            extra=f"rhat={rhat:.3f}" if np.isfinite(rhat)
+                            else "")
+            elif log and attempts_done % (self.attempt_batch * progress_every) == 0:
                 eps = float(_host(self.states.eps_fac).mean())
                 print(self.metrics.status_line(
                     f"acc_min={min_acc} eps_fac={eps:.4g}"))
@@ -346,3 +413,134 @@ class Runner:
                 raise RuntimeError("ABORTING: total steps exceeds total_steps_lim "
                                    "(HMC.cc:533-535)")
         return self.states
+
+    def diagnostics(self) -> dict:
+        """End-of-run diagnostics (runner.py:439-474): throughput metrics
+        and the cross-chain split R-hat and ESS of the per-chain psi traces
+        (warmup half discarded); ESS/s over the wall-clock span that half
+        took."""
+        out = dict(self.metrics.summary()) if self.metrics is not None else {}
+        if self.states is not None:
+            out["acc_rate_recent"] = float(_host(self.states.acc_flags).mean())
+            out["eps_fac"] = _host(self.states.eps_fac).tolist()
+            out["accepted_per_chain"] = _host(self.states.accepted).tolist()
+        if len(self._psi_trace) >= 4:
+            trace = np.stack(self._psi_trace, axis=1)  # [chains, draws]
+            half_ix = trace.shape[1] // 2
+            half = trace[:, half_ix:]
+            out["rhat_psi"] = split_rhat(half)
+            ess = sum(effective_sample_size(row) for row in half)
+            out["ess_psi"] = ess
+            span = self._trace_t[-1] - self._trace_t[half_ix - 1]
+            if span > 0:
+                out["ess_psi_per_s"] = ess / span
+        return out
+
+    # -- checkpoint / resume ----------------------------------------------
+
+    def checkpoint(self, path=None):
+        """Write the full sampler state to checkpoint.npz (+ .json): every
+        ChainState tensor, the generator state, the dump cursor and the
+        mass marker (runner.py:479-498); then the restart marker."""
+        path = Path(path or (self.dir / "checkpoint.npz"))
+        arrs = {f"state_{f.name}": _host(getattr(self.states, f.name))
+                for f in dataclasses.fields(ChainState)}
+        arrs["generator_state"] = self.generator.get_state().numpy()
+        np.savez(path, **arrs)
+        meta = {"conf_seed": self.conf.seed, "grid": [self.g.N1, self.g.L1],
+                "device_type": self.device.type,
+                # resume must not re-dump already-dumped samples
+                "dump_cursor": self._dump_cursor,
+                "mass_at_sample": self._mass_at_sample}
+        path.with_suffix(".json").write_text(json.dumps(meta))
+        self._protocols.write_restart_marker(int(self.states.accepted.min()))
+        return path
+
+    def restore(self, path=None):
+        """Load a checkpoint written by `checkpoint` (after setup()).  It
+        restores on the device type that wrote it only: the generator states
+        of CUDA and CPU differ."""
+        path = Path(path or (self.dir / "checkpoint.npz"))
+        meta = json.loads(path.with_suffix(".json").read_text())
+        if meta["device_type"] != self.device.type:
+            raise ValueError(
+                f"{path} was written on {meta['device_type']}; it restores "
+                f"only there, not on {self.device.type} (the generator states "
+                "of CUDA and CPU differ)")
+        data = np.load(path)
+        self.states = ChainState(**{
+            f.name: torch.as_tensor(data[f"state_{f.name}"], device=self.device)
+            for f in dataclasses.fields(ChainState)})
+        self.generator.set_state(torch.from_numpy(data["generator_state"]))
+        self._dump_cursor = int(meta["dump_cursor"])
+        self._mass_at_sample = int(meta["mass_at_sample"])
+        return self
+
+    def restore_from_dumps(self, iteration: int):
+        """File-based restart without a checkpoint (main.cc:121-131,
+        barcoderunner.cc:284-344; runner.py:519-560): chain 0 resumes from
+        the dumped deltaLAG_<iteration>, the other chains keep their initial
+        guesses, and the adaptive-eps state is rebuilt by replaying
+        performance_log.txt."""
+        s0 = torch.as_tensor(bio.read_array(self.dir / f"deltaLAG_{iteration}",
+                                            self.g.shape), device=self.device)
+        delta = self.states.delta.clone()
+        delta[0] = s0
+        vag = make_psi_force(self.g, self.conf.model, self.gp, self.obs)
+        (psi, (pp, pl)), grad = vag(delta)
+        C, dev = delta.shape[0], self.device
+        st = dataclasses.replace(
+            self.states, delta=delta, psi=psi, psi_prior=pp, psi_like=pl,
+            grad=grad, accepted=torch.full((C,), iteration, dtype=torch.int32,
+                                           device=dev))
+        rep = replay_perflog(self.dir, self.conf.hmc, self.g.N)
+        if rep is not None:
+            def per_chain(x, dtype):
+                x = torch.as_tensor(np.asarray(x), dtype=dtype, device=dev)
+                return x.expand((C,) + x.shape).clone()
+
+            st = dataclasses.replace(
+                st, eps_fac=per_chain(rep["eps_fac"], torch.float32),
+                acc_flags=per_chain(rep["acc_flags"], torch.int32),
+                eps_table=per_chain(rep["eps_table"], torch.float32),
+                count_attempts=per_chain(rep["count_attempts"], torch.int32),
+                rejections=per_chain(rep["rejections"], torch.int32),
+                got_first_accept=per_chain(rep["got_first_accept"],
+                                           torch.bool))
+        self.states = st
+        self._dump_cursor = iteration
+        return self
+
+
+def replay_perflog(run_dir, hc, N: int):
+    """Reconstruct the adaptive-eps state from performance_log.txt, the
+    reference's restart path (barcoderunner.cc:408-479; runner.py:562-593):
+    the rejection count and the (accepted, epsilon) circular tables are
+    replayed exactly; eps_fac is the largest epsilon among the recently
+    accepted attempts.  None when no log exists."""
+    path = Path(run_dir) / "performance_log.txt"
+    if not path.exists():
+        return None
+    rows = []
+    for line in path.read_text().splitlines():
+        if line.startswith("#") or not line.strip():
+            continue
+        parts = line.split("\t")
+        rows.append((float(parts[0]), float(parts[1])))  # accepted, eps
+    if not rows:
+        return None
+    n_a = hc.N_a_eps_update
+    acc = np.zeros(n_a, np.int32)
+    eps = np.full(n_a, hc.eps_fac_start(N), np.float32)
+    for t, (a, e) in enumerate(rows):
+        acc[t % n_a] = int(a)
+        eps[t % n_a] = e
+    acc_eps = [e for a, e in rows[-n_a:] if a > 0]
+    return {
+        "count_attempts": len(rows),
+        "rejections": len(rows) - sum(int(a) for a, _ in rows),
+        "acc_flags": acc,
+        "eps_table": eps,
+        "eps_fac": max(acc_eps) if acc_eps else float(eps.max()),
+        "got_first_accept": any(a > 0 for a, _ in rows),
+    }

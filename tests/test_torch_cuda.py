@@ -135,6 +135,79 @@ def test_cuda_deposit_is_deterministic_at_any_weight_scale(cuda, scale):
     assert torch.isnan(c[1]).all() and torch.equal(c[0], a[0])
 
 
+STREAM_CASES = {
+    # (grid, halo, block, violators): 16^3 and 32^3 with hx 12 have a
+    # window wider than the grid (WX = 32 > 16, 40 > 32)
+    "violators": (G, 3, (16, 16), 200),
+    "halo_pair": (G, (3, 2), (16, 8), 150),
+    "wide_window_32": (G, 12, (16, 16), 200),
+    "wide_window_16": (GridSpec.cube(16, 25.0), 6, (16, 16), 60),
+    # z tiles of 32 cells: clusters of 4 blocks at 128^3, and of 2 with a
+    # ragged last tile (16 cells) at 48^3
+    "cluster_128": (GridSpec.cube(128, 200.0), 3, (16, 16), 2000),
+    "ragged_48": (GridSpec.cube(48, 75.0), (3, 2), (16, 16), 300),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("weighted", [False, True])
+@pytest.mark.parametrize("case", sorted(STREAM_CASES))
+def test_cuda_stream_deposit_is_k1(cuda, case, weighted):
+    """K1s (stream=True) within 2e-6 * max of the plain version, equal to
+    K1 (stream=False) bit for bit, and bit-identical from call to call."""
+    g, halo, block, n_viol = STREAM_CASES[case]
+    pos = positions(7, n_viol, g=g).to(cuda)
+    w = torch.rand((2,) + g.shape, device=cuda) if weighted else None
+    n_s, n_k1 = tk.tsc_deposit_window_stream.launches, tk.tsc_deposit_window.launches
+    out = tk.tsc_deposit_window(pos, g, halo, block, weights=w, stream=True)
+    again = tk.tsc_deposit_window(pos, g, halo, block, weights=w, stream=True)
+    k1 = tk.tsc_deposit_window(pos, g, halo, block, weights=w, stream=False)
+    torch.cuda.synchronize()
+    assert tk.tsc_deposit_window_stream.launches == n_s + 2
+    assert tk.tsc_deposit_window.launches == n_k1 + 1
+    assert torch.equal(out, again) and torch.equal(out, k1)
+    assert_close(out, tk.tsc_deposit_window_plain(pos, g, halo, block,
+                                                  weights=w))
+
+
+@pytest.mark.gpu
+def test_cuda_stream_deposit_marks_a_bad_chain(cuda):
+    pos = positions(8, 50).to(cuda)
+    w = torch.rand((2,) + G.shape, device=cuda)
+    w[0, 5, 6, 7] = float("inf")
+    out = tk.tsc_deposit_window(pos, G, 3, (16, 16), weights=w, stream=True)
+    assert torch.isnan(out[0]).all()
+    assert torch.equal(out[1], tk.tsc_deposit_window(
+        pos, G, 3, (16, 16), weights=w, stream=False)[1])
+
+
+@pytest.mark.gpu
+def test_cuda_windowless_deposits_are_deterministic(cuda):
+    """assign.tsc_deposit (128^3, 2 chains) and the tail-split deposit with
+    300 forced violators piled into a few cells give the same bits on every
+    call: both sum in fixed point, where a float index_add_ on the card
+    sums in a new order each time."""
+    g = GridSpec.cube(128, 200.0)
+    pos = positions(9, 0, g=g).to(cuda)
+    a = assign.tsc_deposit(pos, g)
+    b = assign.tsc_deposit(pos, g)
+    assert torch.equal(a, b)
+    torch.testing.assert_close(a.sum((1, 2, 3)),
+                               torch.full((2,), float(g.N), device=cuda),
+                               rtol=1e-6, atol=0)
+    pos = positions(10, 0).to(cuda)
+    sel = torch.zeros(G.N, dtype=torch.bool)
+    sel[torch.randperm(G.N, generator=torch.Generator().manual_seed(0))[:300]] = True
+    sel = sel.reshape(G.shape).to(cuda)
+    pile = torch.tensor([10.3, 20.1, 30.7], device=cuda).reshape(3, 1, 1, 1)
+    pos = torch.where(sel, pile + 0.01 * torch.randn_like(pos), pos)
+    dep = assign.make_tsc_deposit_fast(G, halo=3, tail_k=1024)
+    assert (assign._halo_excess(pos, G, 3, 3) > 0).sum((1, 2, 3)).min() > 100
+    r1, r2 = dep(pos), dep(pos)
+    assert torch.equal(r1, r2)
+    assert_close(r1, assign.tsc_deposit(pos, G))
+
+
 @pytest.mark.gpu
 def test_cuda_wrappers_raise_on_bad_tensors(cuda):
     pos = positions(4, 0, chains=1)[0].to(cuda)
