@@ -70,3 +70,57 @@ def forward_config(fields: Mapping) -> ForwardConfig:
     kw = {k: (tuple(v) if isinstance(v, list) else v)
           for k, v in fields.items() if k in names}
     return ForwardConfig(**kw)
+
+
+# ---------------------------------------------------------------------------
+# The sharded layout (parallel/): one rank's slabs of full fields
+# ---------------------------------------------------------------------------
+
+def slab(a, n_grid: int, col: int, device=None):
+    """Rank `col`'s x-slab (..., N1/n_grid, N2, N3) of a full field."""
+    arr = np.asarray(a)
+    n1 = arr.shape[-3] // n_grid
+    return tensor(arr[..., col * n1:(col + 1) * n1, :, :], device)
+
+
+def power_slab(power, n_grid: int, col: int, device=None):
+    """Rank `col`'s ky-slab (N1, N2/n_grid, N3h) of a full half-complex
+    grid (the JAX package's power_to_sharded_layout)."""
+    arr = np.asarray(power)
+    n2 = arr.shape[-2] // n_grid
+    return tensor(arr[..., col * n2:(col + 1) * n2, :], device)
+
+
+def sharded_obs(fields: Mapping, n_grid: int, col: int,
+                device=None) -> ObsData:
+    """Rank `col`'s ObsData (x-slabs, power in the sharded Fourier layout)
+    from the full fields of a JAX ObsData."""
+    names = {f.name for f in dataclasses.fields(ObsData)}
+    kw = {}
+    for k, v in fields.items():
+        if k not in names:
+            continue
+        if k == "power":
+            kw[k] = power_slab(v, n_grid, col, device)
+        elif k in ("nobs", "window", "noise"):
+            kw[k] = slab(v, n_grid, col, device)
+        else:
+            kw[k] = float(np.asarray(v))
+    return ObsData(**kw)
+
+
+def sharded_chain_state(fields: Mapping, n_grid: int, col: int,
+                        chains: range, seeds, device=None) -> dict:
+    """This rank's state dict (parallel/sharded_sampler.py) from a JAX
+    sharded chain state gathered to full arrays: the chains `chains`, the
+    x-slab `col` of delta and grad.  The JAX keys are dropped; `seeds`
+    gives this rank's chains their seeds (one per chain)."""
+    out = {}
+    for k, v in fields.items():
+        if k == "key_data":
+            continue
+        arr = np.asarray(v)[chains.start:chains.stop]
+        out[k] = slab(arr, n_grid, col, device) if k in ("delta", "grad") \
+            else tensor(arr, device)
+    out["seed"] = tensor(np.asarray(seeds, np.int64), device)
+    return out

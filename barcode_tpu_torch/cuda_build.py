@@ -24,7 +24,8 @@ import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("tsc_deposit.cu", "tsc_deposit_stream.cu", "tsc_gather.cu")
+SOURCES = ("tsc_deposit.cu", "tsc_deposit_stream.cu", "tsc_gather.cu",
+           "tsc_deposit_slab.cu", "tsc_gather_slab.cu")
 HEADERS = ("tsc_common.cuh",)
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 COMPILE_FLAGS = ARCH_FLAGS + ("-O3", "-std=c++17", "-Xcompiler", "-fPIC",
@@ -43,6 +44,11 @@ SIGNATURES = {
          _I, _P],
     "tsc_gather_grads_window_launch":
         [_P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _I, _I, _I, _I, _I, _P],
+    "tsc_deposit_slab_launch":
+        [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _F, _I, _I, _I,
+         _I, _P],
+    "tsc_gather_grads_slab_launch":
+        [_P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _F, _I, _I, _I, _I, _I, _P],
 }
 
 

@@ -17,8 +17,11 @@ live here and must not be confused:
     (`tsc_kernels.tsc_gather_grads_window`), with the optional halo-tail
     split (assign.py:441-516).
 
-Positions are (3,) + grid or (C, 3) + grid for C chains.  NGP/CIC/SPH
-deposits wait for a later slice (ROADMAP A.3).
+Positions are (3,) + grid or (C, 3) + grid for C chains.  The slab
+variants of the tail split (`_slab_halo_excess`, `_tail_deposit_slab`,
+`_tail_weight_grad_slab`, assign.py:355-449) serve the sharded deposit
+(parallel/sharded_forward).  NGP/CIC/SPH deposits wait for a later slice
+(ROADMAP A.1).
 """
 from __future__ import annotations
 
@@ -235,6 +238,91 @@ def _tail_weight_grad(cot, pos_k, valid, g: GridSpec):
         out[1] = out[1] + w[0][ox] * dw[1][oy] * w[2][oz] * ck
         out[2] = out[2] + w[0][ox] * w[1][oy] * dw[2][oz] * ck
     return torch.stack(out, -2) * valid.to(cot.dtype).unsqueeze(-2)
+
+
+def _slab_halo_excess(pos, g: GridSpec, n1_loc: int, dev: int, h: int):
+    """Per-particle excess of the SLAB kernel-halo contract |off| <= h - 1
+    (assign.py:355-367): x relative to the particle's own row of slab
+    `dev`, y global min-image, as in tsc_kernels._slab_channels."""
+    base = torch.floor(pos / _cell(g, pos, 3))
+    qx = torch.arange(n1_loc, dtype=pos.dtype,
+                      device=pos.device).reshape(n1_loc, 1, 1)
+    qy = torch.arange(g.N2, dtype=pos.dtype, device=pos.device).reshape(1, g.N2, 1)
+    offx = torch.remainder(base.select(-4, 0) - (dev * n1_loc + qx)
+                           + g.N1 / 2.0, g.N1) - g.N1 / 2.0
+    offy = torch.remainder(base.select(-4, 1) - qy + g.N2 / 2.0, g.N2) - g.N2 / 2.0
+    return torch.maximum(offx.abs() - (h - 1), offy.abs() - (h - 1))
+
+
+def _tail_base_weights_slab(pos_k, row_k, valid, g: GridSpec, n1_loc: int,
+                            h_x: int, slab_start: int):
+    """Extended-buffer flat indices (..., 27, K), TSC weights (..., 27, K),
+    fractions (..., 3, K) and x base rows (..., K) of K slab tail particles
+    (assign.py:370-403): x is the own local row + min-image offset + h_x
+    with no wrap (taps leaving [0, n1_loc + 2 h_x) get weight 0), y and z
+    wrap."""
+    n1_ext = n1_loc + 2 * h_x
+    u = pos_k / _cell(g, pos_k, 1)
+    base = torch.floor(u)
+    fr = u - base - 0.5
+    row = row_k.to(pos_k.dtype)
+    offx = torch.remainder(base.select(-2, 0) - (slab_start + row)
+                           + g.N1 / 2.0, g.N1) - g.N1 / 2.0
+    bx = (row + offx).long() + h_x
+    by = torch.remainder(base.select(-2, 1).long(), g.N2)
+    bz = torch.remainder(base.select(-2, 2).long(), g.N3)
+    w = [{s: _tsc_axis_weight(fr.select(-2, a), s) for s in _OFFSETS}
+         for a in range(3)]
+    v = valid.to(pos_k.dtype)
+    idx, wt = [], []
+    for ox, oy, oz in _TSC_OFFSETS:
+        ix = bx + ox
+        in_range = ((ix >= 0) & (ix < n1_ext)).to(pos_k.dtype)
+        ix = torch.clamp(ix, 0, n1_ext - 1)
+        iy = torch.remainder(by + oy, g.N2)
+        iz = torch.remainder(bz + oz, g.N3)
+        idx.append((ix * g.N2 + iy) * g.N3 + iz)
+        wt.append(w[0][ox] * w[1][oy] * w[2][oz] * v * in_range)
+    return torch.stack(idx, -2), torch.stack(wt, -2), fr, bx
+
+
+def _tail_deposit_slab(pos_k, row_k, valid, g: GridSpec, n1_loc: int,
+                       h_x: int, slab_start: int):
+    """Exact 27-point TSC deposit of K slab tail particles per chain into
+    the (..., n1_loc + 2 h_x, N2, N3) extended buffer, summed in fixed point
+    (`_exact_scatter`)."""
+    idx, w, _, _ = _tail_base_weights_slab(pos_k, row_k, valid, g, n1_loc,
+                                           h_x, slab_start)
+    n_ext = (n1_loc + 2 * h_x) * g.N2 * g.N3
+    batch = tuple(pos_k.shape[:-2])
+    c0 = _batch_flat_offsets(batch, n_ext, pos_k.device, 2)
+    flat = (idx + c0).reshape(-1)
+    out = _exact_scatter(lambda k: flat, math.prod(batch) * n_ext,
+                         [w.reshape(-1)], pos_k.shape[-1])
+    return out.reshape(batch + (n1_loc + 2 * h_x, g.N2, g.N3))
+
+
+def _tail_weight_grad_slab(cot_ext, pos_k, row_k, valid, g: GridSpec,
+                           n1_loc: int, h_x: int, slab_start: int):
+    """(..., 3, K) position gradients of the slab tail deposit against the
+    extended-buffer cotangent (assign.py:424-449)."""
+    idx, _, fr, bx = _tail_base_weights_slab(pos_k, row_k, valid, g, n1_loc,
+                                             h_x, slab_start)
+    n1_ext = n1_loc + 2 * h_x
+    c = torch.gather(cot_ext.flatten(-3), -1, idx.flatten(-2)).reshape(
+        idx.shape)
+    w = [{s: _tsc_axis_weight(fr.select(-2, a), s) for s in _OFFSETS}
+         for a in range(3)]
+    dw = [{s: _tsc_axis_dweight(fr.select(-2, a), s, g.cell[a])
+           for s in _OFFSETS} for a in range(3)]
+    out = [torch.zeros_like(c.select(-2, 0)) for _ in range(3)]
+    for k, (ox, oy, oz) in enumerate(_TSC_OFFSETS):
+        in_r = ((bx + ox >= 0) & (bx + ox < n1_ext)).to(cot_ext.dtype)
+        ck = c.select(-2, k) * in_r
+        out[0] = out[0] + dw[0][ox] * w[1][oy] * w[2][oz] * ck
+        out[1] = out[1] + w[0][ox] * dw[1][oy] * w[2][oz] * ck
+        out[2] = out[2] + w[0][ox] * w[1][oy] * dw[2][oz] * ck
+    return torch.stack(out, -2) * valid.to(cot_ext.dtype).unsqueeze(-2)
 
 
 class _WindowedDeposit(torch.autograd.Function):

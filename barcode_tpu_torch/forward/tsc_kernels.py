@@ -1,5 +1,5 @@
-"""Windowed TSC deposit (K1, K1s) and gradient gather (K2): kernels + plain
-versions.
+"""Windowed TSC deposits (K1, K1s, K3) and gradient gathers (K2, K4):
+kernels + plain versions.
 
 Port of barcode_tpu/forward/pallas_deposit.py.  The TPU kernels there
 compute TSC with a *window* rule that the port must reproduce, because it
@@ -21,15 +21,23 @@ decides what a particle that breaks the halo contract contributes:
     field, counting only taps inside the field window of the particle's
     own (BX, BY) block.  Effective halos: hy rounded by `_round_halo`, hx
     tight.
+  * K3 `tsc_deposit_slab` and K4 `tsc_gather_grads_slab` (TPU:
+    `tsc_deposit_pallas_slab`, both of its bodies, and
+    `tsc_gather_grads_pallas_slab`): the same deposit and gather for one
+    x-slab of particles of the sharded forward model, into and from an
+    extended buffer [h + n1_loc + h, N2, N3] whose x margins the ring
+    exchange folds into the neighbouring slabs (parallel/sharded_forward).
 
 Each wrapper takes a CPU tensor to its plain PyTorch version, written with
 the same window semantics (the tests hold these against the Pallas kernels
 in interpret mode), and a CUDA tensor to its hand-written CUDA kernel
-(`csrc/tsc_deposit.cu`, `csrc/tsc_deposit_stream.cu`, `csrc/tsc_gather.cu`).
-There is no fallback: a CUDA tensor launches the kernel or raises.  Each
-kernel's launches are counted in the `launches` attribute of its launcher:
-`tsc_deposit_window` (K1), `tsc_deposit_window_stream` (K1s) and
-`tsc_gather_grads_window` (K2).
+(`csrc/tsc_deposit.cu`, `csrc/tsc_deposit_stream.cu`, `csrc/tsc_gather.cu`,
+`csrc/tsc_deposit_slab.cu`, `csrc/tsc_gather_slab.cu`).  There is no
+fallback: a CUDA tensor launches the kernel or raises.  Each kernel's
+launches are counted in the `launches` attribute of its launcher:
+`tsc_deposit_window` (K1), `tsc_deposit_window_stream` (K1s),
+`tsc_gather_grads_window` (K2), `tsc_deposit_slab` (K3) and
+`tsc_gather_grads_slab` (K4).
 
 Positions are (3,) + grid or (C, 3) + grid for C chains (one launch covers
 all chains); weights and fields are grid or (C,) + grid.
@@ -498,3 +506,239 @@ def tsc_gather_grads_window(field, pos, g: GridSpec, halo=4, block=(8, 8),
 
 
 tsc_gather_grads_window.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Slab variants (K3, K4): the sharded forward model's deposit and gather
+# ---------------------------------------------------------------------------
+
+def _slab_channels(pos, g: GridSpec, n1_loc: int, dev: int, weights=None):
+    """Per-particle channels of one x-slab (pallas_deposit.py:651-672):
+    bx in slab-local unwrapped coordinates (own row + min-image offset; may
+    be negative or beyond n1_loc near the edges), by unwrapped to its own
+    row, bz wrapped, the fractions, then the optional weight.  `dev` is the
+    slab's index along the 'grid' axis.  Returns (6|7,) + slab or
+    batch + (6|7,) + slab, float32 as on the TPU."""
+    u = pos / _cell(g, pos)
+    base = torch.floor(u)
+    frac = u - base - 0.5
+    qx = torch.arange(n1_loc, dtype=pos.dtype, device=pos.device)[:, None, None]
+    qy = torch.arange(g.N2, dtype=pos.dtype, device=pos.device)[None, :, None]
+    b0, b1, b2 = base.unbind(-4)
+    offx = torch.remainder(b0 - (dev * n1_loc + qx) + g.N1 / 2.0,
+                           g.N1) - g.N1 / 2.0
+    offy = torch.remainder(b1 - qy + g.N2 / 2.0, g.N2) - g.N2 / 2.0
+    chans = [qx + offx, qy + offy, torch.remainder(b2, g.N3), *frac.unbind(-4)]
+    if weights is not None:
+        chans.append(weights.to(torch.float32))
+    return torch.stack([c.to(torch.float32).expand(frac.shape[:-4]
+                                                   + frac.shape[-3:])
+                        for c in chans], dim=-4)
+
+
+def _slab_taps(pos, g: GridSpec, n1_loc: int, dev: int):
+    """Integer slab-local bases (bx, by, bz), the fractions, and the local
+    row and y index grids of a slab of particles."""
+    ch = _slab_channels(pos, g, n1_loc, dev)
+    bx, by, bz = (ch.select(-4, a).long() for a in range(3))
+    r = torch.arange(n1_loc, device=pos.device)[:, None, None]
+    iy = torch.arange(g.N2, device=pos.device)[None, :, None]
+    return bx, by, bz, tuple(ch.select(-4, a) for a in (3, 4, 5)), r, iy
+
+
+def tsc_deposit_slab_plain(pos, g: GridSpec, n1_loc: int, dev: int, halo: int,
+                           block=(8, 8), weights=None):
+    """Plain PyTorch version of K3: the slab's TSC deposit into its extended
+    buffer (batch + (n1_loc + 2*halo, N2, N3)) under the slab deposit window
+    rules (see csrc/tsc_deposit_slab.cu), 27 `index_add_` passes."""
+    h = int(halo)
+    BX, BY = block
+    n1_ext = n1_loc + 2 * h
+    bx, by, bz, (fx, fy, fz), r, iy = _slab_taps(pos, g, n1_loc, dev)
+    q = r + h
+    batch = tuple(pos.shape[:-4])
+    out = torch.zeros(batch + (n1_ext, g.N2, g.N3), dtype=pos.dtype,
+                      device=pos.device)
+    flat = out.reshape(-1)
+    c0 = 0
+    if batch:
+        c0 = (torch.arange(batch[0], device=pos.device)
+              * (n1_ext * g.N2 * g.N3)).reshape(-1, 1, 1, 1)
+    X = []
+    for o in _OFFSETS:
+        t = bx + h + o
+        lo = torch.div(t.clamp(min=0), BX, rounding_mode="floor") * BX - h
+        X.append((t.clamp(0, n1_ext - 1),
+                  (t >= 0) & (t < n1_ext) & (q >= lo) & (q < lo + BX + 2 * h)))
+    Y = [_deposit_axis(by, iy, g.N2, BY, h, o) for o in _OFFSETS]
+    Z = [torch.remainder(bz + o, g.N3) for o in _OFFSETS]
+    for a, ox in enumerate(_OFFSETS):
+        tx, mx = X[a]
+        wx = _tsc_w(fx, ox) * mx
+        for b, oy in enumerate(_OFFSETS):
+            ty, my = Y[b]
+            wxy = wx * (_tsc_w(fy, oy) * my)
+            for k, oz in enumerate(_OFFSETS):
+                w = wxy * _tsc_w(fz, oz)
+                if weights is not None:
+                    w = w * weights
+                idx = c0 + (tx * g.N2 + ty) * g.N3 + Z[k]
+                flat.index_add_(0, idx.reshape(-1), w.reshape(-1))
+    return out
+
+
+def tsc_gather_grads_slab_plain(ext_field, pos, g: GridSpec, n1_loc: int,
+                                dev: int, halo: int, block=(8, 8),
+                                want_value=True):
+    """Plain PyTorch version of K4: value (optional) and the three position
+    derivatives, divided by the cell size, of the extended-slab field under
+    the slab gather window rules (see csrc/tsc_gather_slab.cu)."""
+    h = int(halo)
+    BX, BY = block
+    n1_ext = n1_loc + 2 * h
+    bx, by, bz, (fx, fy, fz), r, iy = _slab_taps(pos, g, n1_loc, dev)
+    lo = torch.div(r, BX, rounding_mode="floor") * BX - h
+    X = [((bx + o + h).clamp(0, n1_ext - 1),
+          (bx + o >= lo) & (bx + o < lo + BX + 2 * h)) for o in _OFFSETS]
+    Y = [_gather_axis(by, iy, g.N2, BY, h, o) for o in _OFFSETS]
+    Z = [torch.remainder(bz + o, g.N3) for o in _OFFSETS]
+    flat = ext_field.reshape(-1)
+    c0 = 0
+    if pos.dim() == 5:
+        c0 = (torch.arange(pos.shape[0], device=pos.device)
+              * (n1_ext * g.N2 * g.N3)).reshape(-1, 1, 1, 1)
+    w = [{s: _tsc_w(f, s) for s in _OFFSETS} for f in (fx, fy, fz)]
+    dw = [{s: _tsc_dw(f, s) for s in _OFFSETS} for f in (fx, fy, fz)]
+    val = gx = gy = gz = 0.0
+    for a, ox in enumerate(_OFFSETS):
+        tx, mx = X[a]
+        for b, oy in enumerate(_OFFSETS):
+            ty, my = Y[b]
+            row = c0 + (tx * g.N2 + ty) * g.N3
+            m = (mx & my).to(ext_field.dtype)
+            s = sd = 0.0
+            for k, oz in enumerate(_OFFSETS):
+                v = flat[row + Z[k]] * m
+                s = s + w[2][oz] * v
+                sd = sd + dw[2][oz] * v
+            val = val + w[0][ox] * w[1][oy] * s
+            gx = gx + dw[0][ox] * w[1][oy] * s
+            gy = gy + w[0][ox] * dw[1][oy] * s
+            gz = gz + w[0][ox] * w[1][oy] * sd
+    d1, d2, d3 = g.cell
+    chans = [gx / d1, gy / d2, gz / d3]
+    if want_value:
+        chans.insert(0, val)
+    return torch.stack(chans, dim=-4)
+
+
+def _check_slab(pos, g: GridSpec, n1_loc: int, dev: int, halo: int, block,
+                rows: int):
+    """The TPU kernels' slab contract (pallas_deposit.py:688-690, 752-753):
+    halo a positive multiple of 4, `rows` (the extended or the local rows)
+    and N2 divisible by the block."""
+    if pos.dim() not in (4, 5) or \
+            tuple(pos.shape[-4:]) != (3, n1_loc, g.N2, g.N3):
+        raise ValueError(f"pos must be (3, n1_loc, N2, N3) or (C, 3, n1_loc, "
+                         f"N2, N3) with n1_loc={n1_loc}, got "
+                         f"{tuple(pos.shape)}")
+    if g.N1 % n1_loc or not 0 <= dev < g.N1 // n1_loc:
+        raise ValueError(f"slab {dev} of width {n1_loc} is not a slab of "
+                         f"N1={g.N1}")
+    if halo <= 0 or halo % 4:
+        raise ValueError(f"slab halo must be a positive multiple of 4, got "
+                         f"{halo}")
+    BX, BY = block
+    if rows % BX or g.N2 % BY:
+        raise ValueError(f"block {block} does not tile ({rows}, {g.N2})")
+
+
+def _slab_launch_args(g: GridSpec, C: int, n1_loc: int, dev: int):
+    d1, d2, d3 = g.cell
+    return (C, n1_loc, g.N1, g.N2, g.N3, d1, d2, d3, dev * n1_loc)
+
+
+def tsc_deposit_slab(pos, g: GridSpec, n1_loc: int, dev: int, halo: int,
+                     block=(8, 8), weights=None):
+    """K3: TSC deposit of slab `dev`'s particles into its extended buffer
+    (TPU: pallas_deposit.tsc_deposit_pallas_slab, both of its bodies).
+
+    pos is (3, n1_loc, N2, N3) or (C, 3, n1_loc, N2, N3) for C chains (one
+    launch covers all); weights batch + (n1_loc, N2, N3).  Returns batch +
+    (n1_loc + 2*halo, N2, N3) float32.  CPU tensors take the plain version;
+    CUDA tensors launch csrc/tsc_deposit_slab.cu."""
+    block = tuple(block)
+    _check_slab(pos, g, n1_loc, dev, halo, block, n1_loc + 2 * halo)
+    if pos.device.type == "cpu":
+        return tsc_deposit_slab_plain(pos, g, n1_loc, dev, halo, block,
+                                      weights)
+    if pos.device.type != "cuda":
+        raise ValueError(f"unsupported device {pos.device}")
+    from barcode_tpu_torch import cuda_build
+
+    batch = tuple(pos.shape[:-4])
+    _check_tensor("pos", pos, pos.shape, pos.device)
+    if weights is not None:
+        _check_tensor("weights", weights, batch + (n1_loc, g.N2, g.N3),
+                      pos.device)
+    lib, _ = cuda_build.load()
+    C = batch[0] if batch else 1
+    ext = batch + (n1_loc + 2 * halo, g.N2, g.N3)
+    scale = _fixed_point_scale(weights, n1_loc * g.N2 * g.N3, pos.device)
+    acc = torch.zeros(ext, dtype=torch.int64, device=pos.device)
+    bad = torch.zeros(C, dtype=torch.int32, device=pos.device)
+    out = torch.empty(ext, dtype=torch.float32, device=pos.device)
+    with torch.cuda.device(pos.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        status = lib.tsc_deposit_slab_launch(
+            pos.data_ptr(), weights.data_ptr() if weights is not None else None,
+            scale.data_ptr(), acc.data_ptr(), bad.data_ptr(), out.data_ptr(),
+            *_slab_launch_args(g, C, n1_loc, dev), block[0], block[1], halo,
+            stream)
+    cuda_build.check(lib, status, "tsc_deposit_slab")
+    tsc_deposit_slab.launches += 1
+    return out
+
+
+tsc_deposit_slab.launches = 0
+
+
+def tsc_gather_grads_slab(ext_field, pos, g: GridSpec, n1_loc: int, dev: int,
+                          halo: int, block=(8, 8), want_value=True):
+    """K4: value + position-gradient gather of an extended-slab field at
+    slab `dev`'s particles, the exact adjoint of K3 (TPU:
+    pallas_deposit.tsc_gather_grads_pallas_slab).
+
+    Returns batch + (4|3, n1_loc, N2, N3) float32: [value,] d/dx, d/dy,
+    d/dz per physical position.  CPU tensors take the plain version; CUDA
+    tensors launch csrc/tsc_gather_slab.cu."""
+    block = tuple(block)
+    _check_slab(pos, g, n1_loc, dev, halo, block, n1_loc)
+    if pos.device.type == "cpu":
+        return tsc_gather_grads_slab_plain(ext_field, pos, g, n1_loc, dev,
+                                           halo, block, want_value)
+    if pos.device.type != "cuda":
+        raise ValueError(f"unsupported device {pos.device}")
+    from barcode_tpu_torch import cuda_build
+
+    batch = tuple(pos.shape[:-4])
+    _check_tensor("pos", pos, pos.shape, pos.device)
+    _check_tensor("ext_field", ext_field,
+                  batch + (n1_loc + 2 * halo, g.N2, g.N3), pos.device)
+    lib, _ = cuda_build.load()
+    nch = 4 if want_value else 3
+    out = torch.empty(batch + (nch, n1_loc, g.N2, g.N3), dtype=torch.float32,
+                      device=pos.device)
+    C = batch[0] if batch else 1
+    with torch.cuda.device(pos.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        status = lib.tsc_gather_grads_slab_launch(
+            ext_field.data_ptr(), pos.data_ptr(), out.data_ptr(),
+            *_slab_launch_args(g, C, n1_loc, dev), block[0], block[1], halo,
+            int(want_value), stream)
+    cuda_build.check(lib, status, "tsc_gather_grads_slab")
+    tsc_gather_grads_slab.launches += 1
+    return out
+
+
+tsc_gather_grads_slab.launches = 0

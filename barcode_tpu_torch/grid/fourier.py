@@ -15,6 +15,7 @@ Conventions (FOURIER_DEF_2, the reference default):
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -155,27 +156,53 @@ def _shell_bins(g: GridSpec, nbin: int, device=None):
     return ix, mult, kk
 
 
+@functools.lru_cache(maxsize=16)
+def _bin_gather(g: GridSpec, nbin: int, device: str):
+    """(bin mults, bin |k| sums, padded gather index) of the spherical bins.
+
+    The index is (nbin, max_count) int32: row b lists the flat rfft modes of
+    bin b in ascending order, padded with the index one past the last mode
+    (a zero appended by `_bin_sums`).  A fixed-shape row sum over it adds
+    every bin's modes in the same order on every call, so the binned sums
+    are bit-identical from call to call on any device, where a float
+    `index_add_` on a CUDA tensor adds in a new order each time."""
+    bins, mult, kk = _shell_bins(g, nbin, device)
+    flat = bins.reshape(-1)
+    order = torch.argsort(flat, stable=True)
+    counts = torch.bincount(flat, minlength=nbin + 1)[:nbin]
+    width = max(int(counts.max()), 1)
+    start = torch.cumsum(counts, 0) - counts
+    col = torch.arange(width, device=flat.device)
+    n = flat.numel()
+    idx = torch.where(col[None, :] < counts[:, None],
+                      order[(start[:, None] + col[None, :]).clamp(max=n - 1)],
+                      n).to(torch.int32)
+    return _bin_sums(mult, idx), _bin_sums(mult * kk, idx), idx
+
+
+def _bin_sums(v, idx):
+    """Per-bin sums of the rfft-grid values v over the gather index."""
+    flat = torch.cat([v.reshape(-1), v.new_zeros(1)])
+    return flat.index_select(0, idx.reshape(-1)).reshape(idx.shape).sum(1)
+
+
 def measure_spectrum(x, g: GridSpec, nbin: int):
     """Spherically binned P(k) of one field with the FOURIER_DEF_2 norm
-    V/N^2 (fourier.py:299-318).  Returns (kmode, power, nmode)."""
+    V/N^2 (fourier.py:299-318).  Returns (kmode, power, nmode).
+
+    Each bin is summed in a fixed order (`_bin_gather`), so the result has
+    the same bits on every call, on the card as on the CPU."""
     X = rfft3(x)
     p_mode = X.real * X.real + X.imag * X.imag
-    bins, mult, kk = _shell_bins(g, nbin, x.device)
-    flat = bins.reshape(-1)
-
-    def seg(v):
-        out = torch.zeros(nbin + 1, dtype=v.dtype, device=v.device)
-        return out.index_add_(0, flat, v.reshape(-1))[:nbin]
-
-    nmode = seg(mult)
-    ksum = seg(mult * kk)
-    psum = seg(mult * p_mode)
+    nmode, ksum, idx = _bin_gather(g, nbin, str(x.device))
+    mult = hermitian_mult(g, p_mode.dtype, x.device)
+    psum = _bin_sums(mult * p_mode, idx)
     norm = g.vol / (float(g.N) * float(g.N))
     good = nmode > 0
     safe = torch.where(good, nmode, 1.0)
     kmode = torch.where(good, ksum / safe, 0.0)
     power = torch.where(good, psum / safe * norm, 0.0)
-    return kmode, power, nmode
+    return kmode, power, nmode.clone()
 
 
 def rfft_grid_to_full(x, g: GridSpec):

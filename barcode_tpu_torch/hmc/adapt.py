@@ -69,13 +69,17 @@ def _downward(eps_fac, acc_flags, eps_table, hc: HMCConfig):
 
 
 def _acc_rate_update(eps_fac, count_attempts, acc_flags, eps_table,
-                     hc: HMCConfig, pool: bool = False):
+                     hc: HMCConfig, pool: bool = False, gather=None):
     """Type-2 controller body: fires when count_attempts % N_a == 0
     (time_step.cpp:104-135).  `pool` adapts every chain from the tables of
-    all chains (the JAX package's pool_axis over the chain axis)."""
+    all chains (the JAX package's pool_axis over the chain axis); `gather`
+    maps this process's (C, N_a) tables to those of every chain, for chains
+    spread over processes."""
     fire = (count_attempts % hc.N_a_eps_update == 0) & (count_attempts > 0)
     if pool:
-        C = acc_flags.shape[0]
+        C = eps_fac.shape[0]
+        if gather is not None:
+            acc_flags, eps_table = gather(acc_flags), gather(eps_table)
         acc_flags = acc_flags.reshape(1, -1).expand(C, -1)
         eps_table = eps_table.reshape(1, -1).expand(C, -1)
     alpha = acc_flags.to(torch.float32).mean(-1)
@@ -90,9 +94,9 @@ def _acc_rate_update(eps_fac, count_attempts, acc_flags, eps_table,
 
 def update_eps_fac(eps_fac, count_attempts, rejections, got_first_accept,
                    acc_flags, eps_table, hc: HMCConfig, N: int,
-                   pool: bool = False):
+                   pool: bool = False, gather=None):
     """Dispatch on the update type (update_eps_fac, time_step.cpp:151-185).
-    Called before each trajectory."""
+    Called before each trajectory; `gather` as in `_acc_rate_update`."""
     t = hc.eps_fac_update_type
     if t == 0:
         return eps_fac
@@ -103,10 +107,10 @@ def update_eps_fac(eps_fac, count_attempts, rejections, got_first_accept,
                            eps_fac)
     if t == 2:
         return _acc_rate_update(eps_fac, count_attempts, acc_flags, eps_table,
-                                hc, pool)
+                                hc, pool, gather)
     if t == 3:
         fast = (~got_first_accept) & (rejections > 0)
         normal = _acc_rate_update(eps_fac, count_attempts, acc_flags,
-                                  eps_table, hc, pool)
+                                  eps_table, hc, pool, gather)
         return torch.where(fast, eps_fac / 2.0, normal)
     raise ValueError(f"unknown eps_fac_update_type {t}")

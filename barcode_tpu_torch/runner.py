@@ -54,6 +54,93 @@ def _host(x) -> np.ndarray:
     return x.detach().cpu().numpy()
 
 
+def load_power(conf: RunConfig, device):
+    """readtab equivalent: CAMB table -> rfft grid on `device`; with
+    readPS=false the internal EH98 P(k) (cosmo.linear_power)."""
+    if conf.readPS and conf.fnamePS:
+        k_t, p_t = bio.read_powspec_table(conf.fnamePS)
+    else:
+        from barcode_tpu_torch import cosmo as cosmo_mod
+        k_t = np.logspace(-4, 2, 1024)
+        p_t = cosmo_mod.linear_power(conf.cosmo(), k_t)
+    as_t = lambda a: torch.as_tensor(a, dtype=torch.float32, device=device)
+    return fourier.power_table_to_rfft_grid(as_t(k_t), as_t(p_t), conf.grid)
+
+
+def initial_guess(conf: RunConfig, generator: torch.Generator, power,
+                  run_dir: Path):
+    """make_initial_guess (barcoderunner.cc:207-247) on the generator's
+    device: 0 zero, 1 file, 2 GRF, 3 smoothed GRF, 4 zero + 0.1 noise."""
+    g, dev = conf.grid, generator.device
+    ig = conf.initial_guess
+    if ig == 0:
+        return torch.zeros(g.shape, device=dev)
+    if ig == 1:
+        return torch.as_tensor(
+            bio.read_array(run_dir / conf.initial_guess_file, g.shape),
+            device=dev)
+    if ig in (2, 3):
+        s = random_fields.grf(generator, g, power)
+        if ig == 3:
+            s = fourier.smooth(s, g, conf.initial_guess_smoothing_scale,
+                               conf.initial_guess_smoothing_type)
+        return s
+    if ig == 4:
+        return 0.1 * random_fields.white_noise(generator, g)
+    raise ValueError(f"invalid initial_guess {ig}")
+
+
+def likelihood_force(conf: RunConfig, gp, obs: ObsData, signal):
+    """grad of psi_likelihood at `signal` (runner.py:231-248), through the
+    windowless deposit as in the JAX runner: the force only seeds the
+    mass-2/3 preconditioner spectrum."""
+    mc = conf.model
+    fwd = dataclasses.replace(mc.forward, pallas_deposit=False)
+    with torch.enable_grad():
+        s = signal.detach().requires_grad_(True)
+        if mc.likelihood == 3:
+            psi = likelihoods.grf_psi(s, obs)
+        else:
+            dx = lag2eul(mc.deltaQ_factor * s, conf.grid, fwd, gp)
+            psi = likelihoods.likelihood_psi(mc.likelihood, dx, obs)
+        (grad,) = torch.autograd.grad(psi, s)
+    return grad
+
+
+def warn_violations(fwd, nviol: int):
+    """The halo-contract monitor's warning at dump time: with the tail
+    split it watches the tail capacity."""
+    tail_k = fwd.pallas_tail_k
+    if tail_k > 0:
+        if nviol > tail_k // 2:
+            over = " OVERFLOW: excess mass is dropped;" \
+                if nviol > tail_k else ""
+            print(f"WARNING: {nviol} halo-contract violators against a "
+                  f"tail capacity of {tail_k} (pallas_tail_k) —{over} "
+                  "raise pallas_tail_k or pallas_halo")
+    elif nviol:
+        print(f"WARNING: {nviol} particles breach the deposit halo "
+              f"contract (pallas_halo={fwd.pallas_halo}) — their mass is "
+              "dropped; increase pallas_halo")
+
+
+def append_perflog(perflog, run_dir: Path, stats):
+    """Append chain-0 rows of the 12-column performance_log.txt
+    (HMC.cc:40-60) to the open log `perflog` (opened, with its header when
+    new, if None); returns the open log."""
+    if perflog is None:
+        path = run_dir / "performance_log.txt"
+        new = not path.exists()
+        perflog = open(path, "a")
+        if new:
+            perflog.write("# " + "\t".join(PERFLOG_COLUMNS) + "\n")
+    rows = np.column_stack([getattr(stats, c)[:, 0] for c in PERFLOG_COLUMNS])
+    for r in rows:
+        perflog.write("\t".join(f"{v:.6g}" for v in r) + "\n")
+    perflog.flush()
+    return perflog
+
+
 class Runner:
     def __init__(self, conf: RunConfig, out_dir: str | None = None,
                  device=None):
@@ -131,22 +218,9 @@ class Runner:
 
     # -- setup ------------------------------------------------------------
 
-    def load_power(self):
-        """readtab equivalent: CAMB table -> rfft grid; with readPS=false the
-        internal EH98 P(k) (cosmo.linear_power)."""
-        if self.conf.readPS and self.conf.fnamePS:
-            k_t, p_t = bio.read_powspec_table(self.conf.fnamePS)
-        else:
-            from barcode_tpu_torch import cosmo as cosmo_mod
-            k_t = np.logspace(-4, 2, 1024)
-            p_t = cosmo_mod.linear_power(self.conf.cosmo(), k_t)
-        as_t = lambda a: torch.as_tensor(a, dtype=torch.float32,
-                                         device=self.device)
-        return fourier.power_table_to_rfft_grid(as_t(k_t), as_t(p_t), self.g)
-
     def setup(self, n_chains: int | None = None):
         conf = self.conf
-        power = self.load_power()
+        power = load_power(self.conf, self.device)
         bio.write_array(self.dir / "powerero",
                         _host(fourier.rfft_grid_to_full(power, self.g)))
 
@@ -180,10 +254,12 @@ class Runner:
         n_chains = n_chains or conf.n_chains
         if conf.initial_guess in (2, 3, 4):
             # stochastic guesses are drawn per chain (over-dispersed starts)
-            guesses = torch.stack([self._initial_guess()
-                                   for _ in range(n_chains)])
+            guesses = torch.stack([
+                initial_guess(conf, self.generator, self.obs.power, self.dir)
+                for _ in range(n_chains)])
         else:
-            guesses = self._initial_guess().expand(
+            guesses = initial_guess(conf, self.generator, self.obs.power,
+                                    self.dir).expand(
                 (n_chains,) + self.g.shape).contiguous()
         init = sampler.make_init(self.g, conf.model, self.gp, conf.hmc)
         self.states = init(guesses, self.obs)
@@ -196,28 +272,6 @@ class Runner:
                                          n_attempts_per_call=self.attempt_batch)
         return self
 
-    def _initial_guess(self):
-        """make_initial_guess (barcoderunner.cc:207-247): 0 zero, 1 file,
-        2 GRF, 3 smoothed GRF, 4 zero + 0.1 noise."""
-        conf = self.conf
-        ig = conf.initial_guess
-        if ig == 0:
-            return torch.zeros(self.g.shape, device=self.device)
-        if ig == 1:
-            return torch.as_tensor(
-                bio.read_array(self.dir / conf.initial_guess_file, self.g.shape),
-                device=self.device)
-        if ig in (2, 3):
-            s = random_fields.grf(self.generator, self.g, self.obs.power)
-            if ig == 3:
-                s = fourier.smooth(s, self.g,
-                                   conf.initial_guess_smoothing_scale,
-                                   conf.initial_guess_smoothing_type)
-            return s
-        if ig == 4:
-            return 0.1 * random_fields.white_noise(self.generator, self.g)
-        raise ValueError(f"invalid initial_guess {ig}")
-
     def _compute_mass(self):
         """The mass of conf.hmc.mass_type at the current state
         (runner.py:215-229): types 2/3 from chain 0's likelihood force,
@@ -225,7 +279,8 @@ class Runner:
         hc = self.conf.hmc
         force = None
         if hc.mass_type in (2, 3):
-            force = self._likelihood_force(self.current_signal())
+            force = likelihood_force(self.conf, self.gp, self.obs,
+                                     self.current_signal())
         burned_in = (self.states is not None and
                      int(self.states.accepted.min()) >= hc.s_eps_total(self.g.N))
         return mass_mod.compute_mass(
@@ -234,22 +289,6 @@ class Runner:
             window=self.obs.window, noise=self.obs.noise,
             kernel_h=kernel_h(self.conf.model.forward, self.g),
             burned_in=burned_in)
-
-    def _likelihood_force(self, signal):
-        """grad of psi_likelihood at `signal` (runner.py:231-248), through
-        the windowless deposit as in the JAX runner: the force only seeds
-        the mass-2/3 preconditioner spectrum."""
-        mc = self.conf.model
-        fwd = dataclasses.replace(mc.forward, pallas_deposit=False)
-        with torch.enable_grad():
-            s = signal.detach().requires_grad_(True)
-            if mc.likelihood == 3:
-                psi = likelihoods.grf_psi(s, self.obs)
-            else:
-                dx = lag2eul(mc.deltaQ_factor * s, self.g, fwd, self.gp)
-                psi = likelihoods.likelihood_psi(mc.likelihood, dx, self.obs)
-            (grad,) = torch.autograd.grad(psi, s)
-        return grad
 
     def current_signal(self, chain: int = 0):
         return self.states.delta[chain]
@@ -287,41 +326,12 @@ class Runner:
             km, pw = _host(km), _host(pw)
             bio.dump_spectrum(self.dir / f"powSpecit{iteration}.dat", km, pw)
         if fields and fwd.pallas_deposit and fwd.pallas_halo > 0:
-            self._warn_violations(self._violations(s))
+            warn_violations(fwd, self._violations(s))
         if spectrum:
             acc = float(_host(self.states.acc_flags[chain]).mean())
             resid = float(self.states.psi_like[chain]) / (self.g.N / 2.0)
             self._protocols.log_convergence(iteration, resid, acc)
             self._protocols.log_spectrum(iteration, km, pw, self._truth_spec)
-
-    def _warn_violations(self, nviol: int):
-        fwd = self.conf.model.forward
-        tail_k = fwd.pallas_tail_k
-        if tail_k > 0:
-            if nviol > tail_k // 2:
-                over = " OVERFLOW: excess mass is dropped;" \
-                    if nviol > tail_k else ""
-                print(f"WARNING: {nviol} halo-contract violators against a "
-                      f"tail capacity of {tail_k} (pallas_tail_k) —{over} "
-                      "raise pallas_tail_k or pallas_halo")
-        elif nviol:
-            print(f"WARNING: {nviol} particles breach the deposit halo "
-                  f"contract (pallas_halo={fwd.pallas_halo}) — their mass is "
-                  "dropped; increase pallas_halo")
-
-    def _log_attempts(self, stats):
-        """Append chain-0 rows to performance_log.txt (HMC.cc:40-60)."""
-        if self._perflog is None:
-            path = self.dir / "performance_log.txt"
-            new = not path.exists()
-            self._perflog = open(path, "a")
-            if new:
-                self._perflog.write("# " + "\t".join(PERFLOG_COLUMNS) + "\n")
-        rows = np.column_stack([getattr(stats, c)[:, 0]
-                                for c in PERFLOG_COLUMNS])
-        for r in rows:
-            self._perflog.write("\t".join(f"{v:.6g}" for v in r) + "\n")
-        self._perflog.flush()
 
     # -- sampling loop ----------------------------------------------------
 
@@ -357,7 +367,8 @@ class Runner:
             if nan_check:
                 check_finite(self.states, f"after attempt {attempts_done}")
             if log:
-                self._log_attempts(stats)
+                self._perflog = append_perflog(self._perflog, self.dir,
+                                               stats)
             accepted = _host(self.states.accepted)
             acc0 = int(accepted[0])
             for i in range(self._dump_cursor + 1, min(acc0, n_samples) + 1):

@@ -3,14 +3,17 @@
 
     python3 chip_smoke.py
 
-Drives the port's two paths and checks the CUDA kernels on the way:
+Drives the port's three paths and checks the CUDA kernels on the way:
   * the 128^3 headline configuration (bench.py:60-155: ALPT +
     plane-parallel RSD, sph_ft, Gaussian likelihood, mass type 1,
     N_eps_fac=8, the kernel deposit with the halo-tail split) through
     `Runner(conf).setup(n_chains=2)` and one bounded `run`;
   * the same model at 256^3 (bench.py's BENCH_N=256, box 200) as users run
     it, through the command line `python -m barcode_tpu_torch input.par`:
-    a session, a resume from checkpoint.npz and a restart from the dumps.
+    a session, a resume from checkpoint.npz and a restart from the dumps;
+  * the slab-sharded mode at 256^3 through `python -m barcode_tpu_torch
+    input.par --sharded`: one rank over NCCL, the slab deposit K3 and its
+    gather K4, the sharded FFTs and the ring exchange.
 
 Phases:
   1. device       card name, count and `nvidia-smi` name/power limit
@@ -35,7 +38,22 @@ Phases:
                   --profile; restart from deltaLAG_2 + the performance log),
                   each with the launch counters zeroed before it and checked
                   after; the profile's top kernels by device time
- 10. timing       CUDA-event times of each kernel at its path's shapes
+ 10. spectrum_determinism
+                  measure_spectrum at 128^3 gives the same bits in 5 calls
+                  (the float index_add_ form it replaced, measured beside);
+                  mass types 0, 2, 3 and 5 built on the card
+ 11. slab_kernels K3 and K4 against their plain versions at 32^3 (violators,
+                  windows wider than the slab) and at the 256^3 one-rank
+                  shapes; K3 against itself bit for bit; per-slab K3/K4 at
+                  128^3 for 2 and 4 slabs on one card against K1/K2
+ 12. sharded_psi256
+                  sharded psi and grad psi at 256^3, one rank over NCCL,
+                  against the dense psi on the card
+ 13. sharded_cli256
+                  three `--sharded` command-line calls at 256^3 (session;
+                  --resume; restart from deltaLAG_2 without
+                  checkpoint_sharded.npz), launch counters checked
+ 14. timing       CUDA-event times of each kernel at its path's shapes
 
 Every phase raises on failure, so any failure exits non-zero.  It needs a
 card: without one (or without the package beside it) it exits non-zero
@@ -54,6 +72,7 @@ import collections
 import json
 import shutil
 import subprocess
+import sys
 import tempfile
 import time
 from pathlib import Path
@@ -67,8 +86,13 @@ from barcode_tpu_torch.config import HMCConfig, RunConfig
 from barcode_tpu_torch.forward import assign
 from barcode_tpu_torch.forward import tsc_kernels as tk
 from barcode_tpu_torch.forward.lag2eul import ForwardConfig, displaced_positions
+from barcode_tpu_torch.grid import fourier
 from barcode_tpu_torch.grid.spec import GridSpec
+from barcode_tpu_torch.hmc import mass as mass_mod
 from barcode_tpu_torch.model.posterior import ModelConfig, make_psi_value_and_grad
+from barcode_tpu_torch.parallel import distributed as pdist
+from barcode_tpu_torch.parallel import sharded_forward as sfw
+from barcode_tpu_torch.parallel.sharded_fft import shard_real
 from barcode_tpu_torch.runner import Runner
 
 BUDGET_S = 900.0          # hard stop; the run aims at half of its 1200 s
@@ -87,6 +111,9 @@ OPS_K1, OPS_K2 = 120, 276
 # K1s does K1's arithmetic per particle (the bound counts the work the
 # function needs, not the window re-reads of this design)
 OPS_K1S = OPS_K1
+# K3 and K4 do K1's and K2's arithmetic per particle (the slab geometry only
+# moves integer offsets)
+OPS_K3, OPS_K4 = OPS_K1, OPS_K2
 # tolerances: K1/K2 sum their taps in another order than the plain versions
 # (K1 exactly, in fixed point; the plain version in float32), relative to the
 # field's magnitude as in the JAX package's kernel tests (2e-6 on O(1)
@@ -546,34 +573,61 @@ def top_kernels(trace_path: Path, n: int = 10):
               f"{name[:110]}")
 
 
-def phase_cli256(dev, tmp: str):
+KERNEL_LAUNCHERS = {"K1": tk.tsc_deposit_window,
+                    "K1s": tk.tsc_deposit_window_stream,
+                    "K2": tk.tsc_gather_grads_window,
+                    "K3": tk.tsc_deposit_slab, "K4": tk.tsc_gather_grads_slab}
+
+
+def zero_launches():
+    for f in KERNEL_LAUNCHERS.values():
+        f.launches = 0
+
+
+def read_launches():
+    return {k: f.launches for k, f in KERNEL_LAUNCHERS.items()}
+
+
+def phase_cli256(dev, tmp: str, sharded: bool = False, chains: int = 1):
     """Three command-line calls at 256^3: a session; --resume with
-    --profile; a restart from deltaLAG_2 + the performance log after
-    checkpoint.npz is removed.  Launch counters are zeroed before each call
-    and checked after it.  Returns the path's launches of each kernel."""
-    par = write_input_par(tmp)
+    --profile; a restart from deltaLAG_2 + the performance log after the
+    checkpoint is removed.  With `sharded` the calls add --sharded and
+    --chains `chains`: a (chains, world / chains) layout of the process
+    group (one rank over NCCL when run alone), deposits through K3/K4.
+    Launch counters are zeroed before each call and checked after it (on
+    every rank).  Returns the path's launches of each kernel."""
+    rank = torch.distributed.get_rank() \
+        if torch.distributed.is_initialized() else 0
+    (Path(tmp) / f"par{rank}").mkdir(exist_ok=True)
+    par = write_input_par(Path(tmp) / f"par{rank}")
     out = Path(tmp) / "run"
     prof = Path(tmp) / "prof"
-    common = ["--chains", str(N_CHAINS), "--no-dashboard", "--out", str(out),
-              "--device", dev.type]
+    n_chains = chains if sharded else N_CHAINS
+    common = ["--no-dashboard", "--out", str(out), "--device", dev.type,
+              "--chains", str(n_chains)]
+    common += ["--sharded"] if sharded else []
+    ckpt = "checkpoint_sharded" if sharded else "checkpoint"
     on_card = dev.type == "cuda"
+    world = torch.distributed.get_world_size() \
+        if torch.distributed.is_initialized() else 1
+    profile = ["--profile", str(prof)] if world == 1 else []
     calls = (("session", [str(par), *common, "--samples", "1", "--nan-check"]),
              ("resume", [str(par), *common, "--resume", "--samples", "2",
-                         "--profile", str(prof)]),
+                         *profile]),
              ("restart", [str(par), "2", *common, "--samples", "3"]))
     total = collections.Counter()
     if on_card:
         torch.cuda.reset_peak_memory_stats()
     last = None
     for name, argv in calls:
-        if name == "restart":
+        if name == "restart" and rank == 0:
             for suffix in (".npz", ".json"):
-                (out / f"checkpoint{suffix}").unlink()
+                (out / f"{ckpt}{suffix}").unlink()
+        if sharded:
+            torch.distributed.barrier()
         rows0, dumps0 = _perflog_rows(out), _sample_dumps(out)
         sync(dev)
-        for f in (tk.tsc_deposit_window, tk.tsc_deposit_window_stream,
-                  tk.tsc_gather_grads_window):
-            f.launches = 0
+        zero_launches()
         t0 = time.perf_counter()
         args = cli.parse_args(argv)
         runner = cli.open_session(args)
@@ -582,7 +636,12 @@ def phase_cli256(dev, tmp: str):
         if name == "restart":
             lag2 = torch.from_numpy(bio.read_array(out / "deltaLAG_2",
                                                    runner.g.shape))
-            same = torch.equal(runner.states.delta[0].cpu(), lag2)
+            if sharded:  # this rank's slab; chain 0 lives on row 0
+                lay = runner.layout
+                same = lay.row != 0 or torch.equal(
+                    runner.state["delta"][0].cpu(), shard_real(lag2, lay))
+            else:
+                same = torch.equal(runner.states.delta[0].cpu(), lag2)
             print(f"  restart: chain 0's delta == deltaLAG_2 bit for bit: "
                   f"{same}")
             if not same:
@@ -590,33 +649,36 @@ def phase_cli256(dev, tmp: str):
         cli.run_session(runner, args)
         sync(dev)
         t2 = time.perf_counter()
-        launches = {"K1s": tk.tsc_deposit_window_stream.launches,
-                    "K1": tk.tsc_deposit_window.launches,
-                    "K2": tk.tsc_gather_grads_window.launches}
+        launches = read_launches()
         attempts = _perflog_rows(out) - rows0
         dumps1 = _sample_dumps(out)
         new = sorted(set(dumps1) - set(dumps0))
         rewritten = sorted(k for k in dumps0 if dumps1[k] != dumps0[k])
         n_dep = sum(1 for k in new if k.startswith(("deltaEUL_", "deltaRSS_")))
         grads = 1 + (name == "restart") + 8 * attempts  # N_eps_fac = 8
-        # kernels launch only where they are on the CUDA device
-        expected = {"K1s": grads + n_dep, "K1": 0, "K2": grads} if on_card \
-            else {"K1s": 0, "K1": 0, "K2": 0}
-        ck = np.load(out / "checkpoint.npz")
+        expected = dict.fromkeys(KERNEL_LAUNCHERS, 0)
+        # kernels launch only where they are on the CUDA device; the
+        # sharded dumps run the dense windowless deposit, as in the JAX
+        # package (sharded_runner.py:165-171)
+        if on_card and sharded:
+            expected.update(K3=grads, K4=grads)
+        elif on_card:
+            expected.update(K1s=grads + n_dep, K2=grads)
+        ck = np.load(out / f"{ckpt}.npz")
         accepted, psi = ck["state_accepted"], ck["state_psi"]
         steps = 8 * attempts
         print(f"  {name}: setup {t1 - t0:.2f} s, run {t2 - t1:.2f} s: "
               f"{attempts} attempts, {steps} steps, {steps / (t2 - t1):.3f} "
-              f"steps/s ({N_CHAINS * steps / (t2 - t1):.3f} chain-steps/s)"
-              f"{' with the profiler on' if name == 'resume' else ''}")
+              f"steps/s ({n_chains * steps / (t2 - t1):.3f} chain-steps/s)"
+              f"{' with the profiler on' if name == 'resume' and profile else ''}")
         if on_card:
             print(f"  {name}: max_memory_allocated "
                   f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
         print(f"  {name}: accepted {accepted.tolist()}, psi {psi.tolist()}, "
               f"new dumps {new}, rewritten {rewritten}")
         print(f"  {name}: launches {launches}, expected {expected} (init"
-              f"{' + restart' if name == 'restart' else ''} + 8 per attempt;"
-              f" K1s also one per dumped field: {n_dep})")
+              f"{' + restart' if name == 'restart' else ''} + 8 per attempt"
+              f"{'' if sharded else '; K1s also one per dumped field: %d' % n_dep})")
         if launches != expected:
             raise RuntimeError(f"{name}: kernel launches {launches} != "
                                f"{expected}")
@@ -627,17 +689,283 @@ def phase_cli256(dev, tmp: str):
             raise RuntimeError(f"resume: accepted did not continue from {last}")
         last = accepted
         total.update(launches)
-        if name == "resume":
+        if name == "resume" and profile:
             top_kernels(prof / "trace.json")
             shutil.rmtree(prof)
+        if sharded:
+            torch.distributed.barrier()  # every rank has read the files
     return dict(total)
 
 
+def float_spectrum(x, g: GridSpec, nbin: int):
+    """measure_spectrum's power as it was summed before: a float index_add_
+    over the bins, whose CUDA atomics add in a new order on every call."""
+    X = fourier.rfft3(x)
+    p = X.real * X.real + X.imag * X.imag
+    bins, mult, _ = fourier._shell_bins(g, nbin, x.device)
+    out = torch.zeros(nbin + 1, dtype=p.dtype, device=p.device)
+    return out.index_add_(0, bins.reshape(-1), (mult * p).reshape(-1))[:nbin]
+
+
+def phase_spectrum_determinism(dev):
+    """measure_spectrum at 128^3 gives the same bits in 5 calls (the float
+    form it replaced is measured beside it); then mass types 0, 2, 3 and 5
+    are built once each on the card and must be finite."""
+    g = GridSpec.cube(N_GRID, BOX)
+    gen = torch.Generator(device=dev).manual_seed(17)
+    x = torch.randn(g.shape, generator=gen, device=dev)
+    ref = fourier.measure_spectrum(x, g, 200)
+    sp = max(max((a - b).abs().max().item() for a, b in
+                 zip(fourier.measure_spectrum(x, g, 200), ref))
+             for _ in range(4))
+    sp_float = spread(lambda: float_spectrum(x, g, 200), repeats=4)
+    print(f"  measure_spectrum {g.N1}^3, 200 bins (power up to "
+          f"{ref[1].max().item():.4e}): max|diff| over 5 calls {sp:.3e}; "
+          f"its bin sums as a float index_add_ {sp_float:.3e} (sums up to "
+          f"{float_spectrum(x, g, 200).max().item():.4e})")
+    if sp != 0.0:
+        raise RuntimeError("measure_spectrum is not deterministic on the card")
+    k2 = fourier.k_squared(g, device=dev)
+    power = 5.0 + 45.0 / (1.0 + 4.0 * k2)
+    power[0, 0, 0] = 0.0
+    force = torch.randn(g.shape, generator=gen, device=dev)
+    window = (torch.rand(g.shape, generator=gen, device=dev) > 0.2).float()
+    noise = 0.5 + torch.rand(g.shape, generator=gen, device=dev)
+    for mt in (0, 2, 3, 5):
+        m = mass_mod.compute_mass(g, mt, power, nbin=200, likeli_force=force,
+                                  window=window, noise=noise,
+                                  kernel_h=g.cell_avg)
+        again = mass_mod.compute_mass(g, mt, power, nbin=200,
+                                      likeli_force=force, window=window,
+                                      noise=noise, kernel_h=g.cell_avg)
+        parts = [torch.as_tensor(v, device=dev) for v in (m.mass_f, m.mass_r)]
+        same = all(torch.equal(torch.as_tensor(a, device=dev),
+                               torch.as_tensor(b, device=dev))
+                   for a, b in ((m.mass_f, again.mass_f),
+                                (m.mass_r, again.mass_r)))
+        finite = all(bool(torch.isfinite(t).all()) for t in parts)
+        print(f"  mass type {mt}: mass_f max {parts[0].max().item():.4e}, "
+              f"mass_r max {parts[1].max().item():.4e}, finite {finite}, "
+              f"same bits twice {same}")
+        if not (finite and same):
+            raise RuntimeError(f"mass type {mt} on the card")
+
+
+def fold_slabs(exts, g: GridSpec, n1: int, h: int):
+    """Full-grid density from extended slabs: each slab's rows, margins
+    included, added at their periodic global rows (on the device, no
+    collective)."""
+    total = torch.zeros(exts[0].shape[:-3] + g.shape, device=exts[0].device)
+    for dev, ext in enumerate(exts):
+        rows = torch.remainder(torch.arange(-h, n1 + h, device=ext.device)
+                               + dev * n1, g.N1)
+        total.index_add_(-3, rows, ext)
+    return total
+
+
+def check_slab(label, g, pos, n1, dev, h, weights, cot):
+    """K3 (against its plain version and against itself) and K4 (with and
+    without the value) on one slab; returns the errors."""
+    out = tk.tsc_deposit_slab(pos, g, n1, dev, h, weights=weights)
+    again = tk.tsc_deposit_slab(pos, g, n1, dev, h, weights=weights)
+    sync(pos.device)
+    ref = tk.tsc_deposit_slab_plain(pos, g, n1, dev, h, weights=weights)
+    errs = {"K3": compare(f"K3 {label}", out, ref, TOL_DEP_REL)}
+    if not torch.equal(out, again):
+        raise RuntimeError(f"K3 {label} differs from itself")
+    for want_value in (False, True):
+        o = tk.tsc_gather_grads_slab(cot, pos, g, n1, dev, h,
+                                     want_value=want_value)
+        sync(pos.device)
+        r = tk.tsc_gather_grads_slab_plain(cot, pos, g, n1, dev, h,
+                                           want_value=want_value)
+        errs[f"K4 value={want_value}"] = compare(
+            f"K4 {label} want_value={want_value}", o, r, TOL_GATHER_REL)
+    return errs
+
+
+def phase_slab_kernels(dev, inputs, inputs256):
+    """K3/K4 at 32^3 (violators; 8-row slabs under 24-row windows), at the
+    256^3 one-rank shapes of the sharded path, and per slab at 128^3 for 2
+    and 4 slabs against K1/K2 on one card.  Returns the 256^3 one-rank
+    inputs and errors."""
+    g32 = GridSpec.cube(32, 32 * BOX / N_GRID)
+    pos32 = violator_positions(g32, 1, 200, dev, jitter=1.5)
+    gen = torch.Generator(device=dev).manual_seed(23)
+    for D, h in ((1, 8), (2, 4), (4, 8)):
+        n1 = 32 // D
+        for k in range(D):
+            p = pos32[:, :, k * n1:(k + 1) * n1].contiguous()
+            w = torch.rand((1, n1, 32, 32), generator=gen, device=dev)
+            cot = torch.randn((1, n1 + 2 * h, 32, 32), generator=gen,
+                              device=dev)
+            for tag, ww in (("unweighted", None), ("weighted", w)):
+                check_slab(f"32^3 D={D} slab {k} h={h} {tag}", g32, p, n1, k,
+                           h, ww, cot)
+
+    # the 256^3 one-rank shapes: 1 chain, the whole box as one slab, the
+    # kernel halo rounded up to a multiple of 4
+    g, pos2 = inputs256["g"], inputs256["pos"][:1].contiguous()
+    h = -(-int(inputs256["halo"]) // 4) * 4
+    ok = (assign._slab_halo_excess(pos2, g, g.N1, 0, h) <= 0.0).float()
+    cot = torch.randn((1, g.N1 + 2 * h) + g.shape[1:], generator=gen,
+                      device=dev)
+    print(f"  {g.N1}^3 one rank: kernel halo {h}, n1_ext {g.N1 + 2 * h}, "
+          f"violators {(ok == 0).sum().item()}")
+    errs = {}
+    for tag, w in (("unweighted", None), ("weighted", ok)):
+        e = check_slab(f"{g.N1}^3 one rank {tag}", g, pos2, g.N1, 0, h, w,
+                       cot)
+        errs.update({f"{k} {tag}": v for k, v in e.items()})
+
+    # per slab at 128^3 against K1/K2, contract violators zero-weighted
+    g1, pos1, ok1 = inputs["g"], inputs["pos"], inputs["ok"]
+    halo, block_dep, block = inputs["halo"], inputs["block_dep"], \
+        inputs["block"]
+    rho = tk.tsc_deposit_window(pos1, g1, halo, block_dep, weights=ok1)
+    cot1 = torch.randn(pos1.shape[:1] + g1.shape, generator=gen, device=dev)
+    k2 = tk.tsc_gather_grads_window(cot1, pos1, g1, halo, block, False)
+    h1 = -(-int(halo) // 4) * 4
+    for D in (2, 4):
+        n1 = g1.N1 // D
+        exts, grads = [], []
+        for k in range(D):
+            p = pos1[:, :, k * n1:(k + 1) * n1].contiguous()
+            exts.append(tk.tsc_deposit_slab(
+                p, g1, n1, k, h1, weights=ok1[:, k * n1:(k + 1) * n1]
+                .contiguous()))
+            rows = torch.remainder(torch.arange(-h1, n1 + h1, device=dev)
+                                   + k * n1, g1.N1)
+            grads.append(tk.tsc_gather_grads_slab(
+                cot1.index_select(-3, rows).contiguous(), p, g1, n1, k, h1,
+                want_value=False))
+        compare(f"K3 {D} slabs of {g1.N1}^3 folded vs K1", fold_slabs(
+            exts, g1, n1, h1), rho, TOL_DEP_REL)
+        compare(f"K4 {D} slabs of {g1.N1}^3 vs K2 (contract-keeping "
+                "particles)", torch.cat(grads, dim=-3) * ok1[:, None],
+                k2 * ok1[:, None], TOL_GATHER_REL)
+    return dict(g=g, pos=pos2, ok=ok, cot=cot, halo=h), errs
+
+
+def phase_sharded_psi256(dev, runner: Runner):
+    """The sharded posterior at 256^3 on a 1 x world layout of the process
+    group (one rank over NCCL when run alone) against the dense posterior
+    on this rank's card, from the same delta (the mock truth); grad psi is
+    compared slab by slab, its norms summed over the ranks."""
+    g, gp, conf = runner.g, runner.gp, runner.conf
+    fc = conf.model.forward
+    halo = tk.displacement_bound_cells(runner.truth, g, fc, gp)
+    world = 1
+    if torch.distributed.is_initialized():
+        world = torch.distributed.get_world_size()
+    layout = pdist.make_layout(1, world, device=dev.type)
+    print(f"  process group: backend {torch.distributed.get_backend()}, "
+          f"world {world}; exchange halo {halo}, kernel halo "
+          f"{fc.pallas_halo} (rounded to {-(-fc.pallas_halo // 4) * 4}), "
+          f"tail_k {fc.pallas_tail_k}")
+    psi_fn, grad_fn = sfw.make_sharded_psi(g, fc, gp, conf.model.likelihood,
+                                           layout, halo=halo)
+    obs = sfw.shard_obs(runner.obs, layout)
+    delta = runner.truth
+    s_loc = shard_real(delta, layout).contiguous()
+    zero_launches()
+    t0 = time.perf_counter()
+    psi_s, grad_s = psi_fn(s_loc, obs), grad_fn(s_loc, obs)
+    sync(dev)
+    t1 = time.perf_counter()
+    launches = read_launches()
+    (psi_d, _), grad_d = make_psi_value_and_grad(g, conf.model, gp,
+                                                 runner.obs)(delta[None])
+    psi_d, grad_d = psi_d[0].item(), shard_real(grad_d[0], layout)
+    norms = torch.stack([torch.sum((grad_s - grad_d) ** 2),
+                         torch.sum(grad_d ** 2)]).double()
+    torch.distributed.all_reduce(norms)
+    psi_err = abs(psi_s - psi_d) / abs(psi_d)
+    grad_err = (norms[0] / norms[1]).sqrt().item()
+    print(f"  sharded {t1 - t0:.3f} s (first calls); psi sharded {psi_s} "
+          f"dense {psi_d}: rel err {psi_err:.3e} (tol {TOL_PSI_REL:.0e}); "
+          f"grad psi rel L2 err {grad_err:.3e} (tol {TOL_GRAD_REL:.0e}); "
+          f"launches {launches}")
+    if not (psi_err <= TOL_PSI_REL and grad_err <= TOL_GRAD_REL
+            and bool(torch.isfinite(grad_s).all())):
+        raise RuntimeError("the sharded psi disagrees with the dense psi")
+    expected = {"K3": 2, "K4": 1} if dev.type == "cuda" else \
+        {"K3": 0, "K4": 0}
+    if {k: launches[k] for k in expected} != expected:
+        raise RuntimeError(f"sharded psi launches {launches}: expected K3 "
+                           "twice (value, then value and grad) and K4 once")
+
+
+def slab_rows(slab, slab_errs, launches_sh):
+    """The timing rows of K3 and K4: at the 256^3 one-rank shapes of the
+    sharded path (weighted: the tail split zero-weights violators), K3
+    also unweighted, and both on slab 0 of 2 slabs at 256^3 (n1_loc = 128,
+    1 chain, the same kernel halo), where their error is taken here."""
+    g, pos, ok, cot, h = (slab[k] for k in ("g", "pos", "ok", "cot", "halo"))
+    n1 = g.N1
+    n_part, n_active = g.N, int(ok.sum())
+    n_ext = (n1 + 2 * h) * g.N2 * g.N3
+    src3 = "barcode_tpu_torch/csrc/tsc_deposit_slab.cu"
+    rep3 = "barcode_tpu/forward/pallas_deposit.py:675"
+    src4 = "barcode_tpu_torch/csrc/tsc_gather_slab.cu"
+    rep4 = "barcode_tpu/forward/pallas_deposit.py:744"
+    note = f"{N_BIG}^3 --sharded command-line path, 8 per attempt"
+    rows = [
+        ("K3", "tsc_deposit_slab",
+         lambda: tk.tsc_deposit_slab(pos, g, n1, 0, h, weights=ok),
+         lambda: tk.tsc_deposit_slab_plain(pos, g, n1, 0, h, weights=ok),
+         n_part * (12 + 4) + 4 * n_ext, n_active * OPS_K3,
+         slab_errs["K3 weighted"], src3, rep3, launches_sh["K3"], note),
+        ("K3 unweighted", f"tsc_deposit_slab ({N_BIG}^3, unweighted)",
+         lambda: tk.tsc_deposit_slab(pos, g, n1, 0, h),
+         lambda: tk.tsc_deposit_slab_plain(pos, g, n1, 0, h),
+         n_part * 12 + 4 * n_ext, n_part * OPS_K3,
+         slab_errs["K3 unweighted"], src3, rep3, 0,
+         "the path weights every K3 call (tail split)"),
+        ("K4", "tsc_gather_grads_slab",
+         lambda: tk.tsc_gather_grads_slab(cot, pos, g, n1, 0, h,
+                                          want_value=False),
+         lambda: tk.tsc_gather_grads_slab_plain(cot, pos, g, n1, 0, h,
+                                                want_value=False),
+         4 * n_ext + n_part * (12 + 12), n_part * OPS_K4,
+         slab_errs["K4 value=False weighted"], src4, rep4,
+         launches_sh["K4"], note)]
+    # slab 0 of 2 at 256^3
+    m1 = n1 // 2
+    p2 = pos[:, :, :m1].contiguous()
+    ok2 = ok[:, :m1].contiguous()  # the one-rank mask, a weight like any
+    cot2 = cot[:, :m1 + 2 * h].contiguous()
+    m_part, m_ext = g.N // 2, (m1 + 2 * h) * g.N2 * g.N3
+    e3 = compare("K3 slab 0 of 2", tk.tsc_deposit_slab(p2, g, m1, 0, h,
+                                                       weights=ok2),
+                 tk.tsc_deposit_slab_plain(p2, g, m1, 0, h, weights=ok2),
+                 TOL_DEP_REL)
+    e4 = compare("K4 slab 0 of 2", tk.tsc_gather_grads_slab(
+        cot2, p2, g, m1, 0, h, want_value=False),
+        tk.tsc_gather_grads_slab_plain(cot2, p2, g, m1, 0, h,
+                                       want_value=False), TOL_GATHER_REL)
+    two = "2 slabs: not on the one-rank path"
+    rows += [
+        ("K3@2slabs", f"tsc_deposit_slab ({N_BIG}^3, slab 0 of 2)",
+         lambda: tk.tsc_deposit_slab(p2, g, m1, 0, h, weights=ok2),
+         lambda: tk.tsc_deposit_slab_plain(p2, g, m1, 0, h, weights=ok2),
+         m_part * (12 + 4) + 4 * m_ext, int(ok2.sum()) * OPS_K3, e3, src3,
+         rep3, 0, two),
+        ("K4@2slabs", f"tsc_gather_grads_slab ({N_BIG}^3, slab 0 of 2)",
+         lambda: tk.tsc_gather_grads_slab(cot2, p2, g, m1, 0, h,
+                                          want_value=False),
+         lambda: tk.tsc_gather_grads_slab_plain(cot2, p2, g, m1, 0, h,
+                                                want_value=False),
+         4 * m_ext + m_part * 24, m_part * OPS_K4, e4, src4, rep4, 0, two)]
+    return rows
+
+
 def phase_timing(inputs, errs, launches, per_attempt, inputs256, errs256,
-                 launches256):
+                 launches256, slab, slab_errs, launches_sh):
     """CUDA-event times of each kernel and its plain version at its path's
-    shapes (K1, K2 at 128^3; K1s, K2 and, beside them, K1 at 256^3), with
-    each kernel's bound; returns the kernels' JSON rows."""
+    shapes (K1, K2 at 128^3; K1s, K2 and, beside them, K1 at 256^3; K3, K4
+    at the 256^3 one-rank and 2-slab shapes), with each kernel's bound;
+    returns the kernels' JSON rows."""
     g, pos, ok, cot = inputs["g"], inputs["pos"], inputs["ok"], inputs["cot"]
     halo, block, block_dep = inputs["halo"], inputs["block"], inputs["block_dep"]
     n_part = pos.shape[0] * g.N
@@ -685,7 +1013,8 @@ def phase_timing(inputs, errs, launches, per_attempt, inputs256, errs256,
                                        stream=False),
          plain2, n_part2 * (12 + 4 + 4), n_active2 * OPS_K1,
          errs256["weighted"], dep_src, dep_rep, launches256["K1"],
-         f"{N_BIG}^3 command-line path: K1s runs there"))
+         f"{N_BIG}^3 command-line path: K1s runs there"),
+        *slab_rows(slab, slab_errs, launches_sh))
     rows = []
     for key, name, fn, plain, nbytes, ops, err, src, rep, n_launch, note in \
             kernels:
@@ -706,7 +1035,63 @@ def phase_timing(inputs, errs, launches, per_attempt, inputs256, errs256,
     return rows
 
 
-def main():
+def rank_worker(tmp: str, device_type: str):
+    """One rank of `--ranks N` (started by torch.distributed.run): the
+    sharded posterior at 256^3 on a 1 x N layout against the dense
+    posterior on this rank's card, then the three `--sharded` command-line
+    calls on a (2, N/2) layout (N even), launch counters checked on every
+    rank.  Rank 0 prints; the other ranks log to files in `tmp`."""
+    pdist.initialize_multihost(device=device_type)
+    rank = torch.distributed.get_rank()
+    world = torch.distributed.get_world_size()
+    if rank:
+        sys.stdout = open(Path(tmp) / f"rank{rank}.log", "w", buffering=1)
+    dev = pdist.rank_device(device_type)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    work = Path(tmp) / f"rank{rank}"
+    work.mkdir()
+    conf = RunConfig.from_input_par(write_input_par(work))
+    runner = Runner(conf, out_dir=work, device=dev)
+    runner.setup(n_chains=1)
+    print(f"== rank {rank} of {world} on {dev}: sharded psi on 1 x {world}",
+          flush=True)
+    phase_sharded_psi256(dev, runner)
+    runner.close()
+    del runner
+    chains = 2 if world % 2 == 0 else 1
+    print(f"== --sharded command line on {chains} x {world // chains}",
+          flush=True)
+    launches = phase_cli256(dev, tmp, sharded=True, chains=chains)
+    print(f"  launches over the three calls on rank {rank}: {launches}")
+    torch.distributed.destroy_process_group()
+
+
+def phase_ranks(n: int, tmp: str, seconds: float):
+    """`rank_worker` on n ranks of this machine's cards, through
+    torch.distributed.run; raises if any rank fails."""
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           f"--nproc-per-node={n}", str(Path(__file__).resolve()),
+           "--rank-worker", tmp]
+    proc = subprocess.run(cmd, capture_output=True, text=True,
+                          timeout=seconds)
+    print(proc.stdout, flush=True)
+    if proc.returncode != 0:
+        print(proc.stderr[-6000:], flush=True)
+        for log in sorted(Path(tmp).glob("rank*.log")):
+            print(f"--- {log.name}:\n{log.read_text()[-3000:]}")
+        raise RuntimeError(f"{n}-rank run failed ({proc.returncode})")
+
+
+def main(argv=None):
+    """No arguments: every phase on one card.  `--ranks N`: the device and
+    build phases, then the sharded path on N cards of this machine
+    (`rank_worker`).  `--rank-worker DIR` is the internal entry of one
+    such rank."""
+    argv = sys.argv[1:] if argv is None else argv
+    if argv[:1] == ["--rank-worker"]:
+        return rank_worker(argv[1], argv[3] if argv[2:3] == ["--device"]
+                           else "cuda")
+    ranks = int(argv[1]) if argv[:1] == ["--ranks"] else 1
     clock = Clock()
     tmp_dirs = []
     try:
@@ -738,8 +1123,26 @@ def main():
                 print("  ptxas:", line.strip())
         clock.done()
 
+        if ranks > 1:
+            clock.start(f"sharded_ranks{ranks}")
+            if count < ranks:
+                raise RuntimeError(f"--ranks {ranks} needs {ranks} cards, "
+                                   f"this machine has {count}")
+            tmp_dirs.append(tempfile.mkdtemp(prefix="chip_smoke_"))
+            phase_ranks(ranks, tmp_dirs[-1], BUDGET_S)
+            clock.done()
+            print(smi)
+            print(json.dumps({"ok": True, "device": {
+                "platform": "gpu", "kind": kind, "count": count}}),
+                flush=True)
+            return
+
         clock.start("determinism")
         phase_determinism(dev)
+        clock.done()
+
+        clock.start("spectrum_determinism")
+        phase_spectrum_determinism(dev)
         clock.done()
 
         clock.start("kernels")
@@ -769,8 +1172,17 @@ def main():
 
         clock.start("psi256")
         phase_psi(runner, delta[:1])
+        del delta
+        clock.done()
+
+        clock.start("slab_kernels")
+        slab, slab_errs = phase_slab_kernels(dev, inputs, inputs256)
+        clock.done()
+
+        clock.start("sharded_psi256")
+        phase_sharded_psi256(dev, runner)
         runner.close()
-        del runner, delta
+        del runner
         clock.done()
 
         clock.start("cli256")
@@ -778,9 +1190,15 @@ def main():
         launches256 = phase_cli256(dev, tmp_dirs[-1])
         clock.done()
 
+        clock.start("sharded_cli256")
+        tmp_dirs.append(tempfile.mkdtemp(prefix="chip_smoke_"))
+        launches_sh = phase_cli256(dev, tmp_dirs[-1], sharded=True)
+        clock.done()
+
         clock.start("timing")
         rows = phase_timing(inputs, errs, launches, per_attempt, inputs256,
-                            errs256, launches256)
+                            errs256, launches256, slab, slab_errs,
+                            launches_sh)
         clock.done()
 
         print(smi)
@@ -788,6 +1206,8 @@ def main():
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": kind, "count": count}}), flush=True)
     finally:
+        if torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()
         for d in tmp_dirs:
             shutil.rmtree(d, ignore_errors=True)
 

@@ -1,7 +1,7 @@
 """The port's command line on the CPU: the same options as the JAX
-package's (plus --device), the multi-device options refused, and a 16^3
-session run, resumed from its checkpoint and restarted from its dumps
-(`--device cpu`), as chip_smoke.py drives it at 256^3 on the card.
+package's (plus --device), and 16^3 sessions run, resumed from their
+checkpoints and restarted from their dumps (`--device cpu`), dense and
+`--sharded` at one rank, as chip_smoke.py drives them at 256^3 on the card.
 """
 import json
 import re
@@ -63,9 +63,37 @@ def test_options_match_the_jax_cli(capsys):
     ["--sharded"], ["--halo", "0"], ["--coordinator", "localhost:1234"],
     ["--num-processes", "2"], ["--process-id", "0"], ["--multihost"]])
 def test_multi_device_options_raise(argv, tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP A.4"):
-        cli.main([str(tmp_path / "input.par"), "--device", "cpu", *argv])
+    """The multi-device options parse to their values as in the JAX CLI
+    (they no longer raise NotImplementedError); a (chains, grid) layout the
+    process group cannot hold raises ValueError before any work, as the JAX
+    package's default_mesh does."""
+    args = cli.parse_args([str(tmp_path / "input.par"), "--device", "cpu",
+                           *argv])
+    dest = argv[0][2:].replace("-", "_")
+    value = getattr(args, dest)
+    assert value is True if len(argv) == 1 else str(value) == argv[1]
+    layout_only = [a for a in argv if argv[0] in ("--sharded", "--halo")]
+    with pytest.raises(ValueError, match="not divisible by 3 chains"):
+        cli.main([str(tmp_path / "input.par"), "--device", "cpu", "--sharded",
+                  "--chains", "3", *layout_only])
     assert not any(tmp_path.iterdir())  # refused before any work
+
+
+def test_coordinator_needs_the_process_count(tmp_path):
+    with pytest.raises(ValueError, match="--num-processes and --process-id"):
+        cli.main([str(tmp_path / "input.par"), "--device", "cpu",
+                  "--coordinator", "localhost:1234"])
+    assert not any(tmp_path.iterdir())
+
+
+def test_sharded_two_chains_at_one_rank_raise_as_jax(tmp_path):
+    """--sharded --chains 2 on a group of one rank: the JAX package's
+    default_mesh message (sharded_runner.py:57-63)."""
+    par = tmp_path / "input.par"
+    par.write_text(INPUT_PAR)
+    with pytest.raises(ValueError,
+                       match=r"^1 devices not divisible by 2 chains$"):
+        cli.main([str(par), "--device", "cpu", "--sharded", "--chains", "2"])
 
 
 def test_masskernel_sph_ft_parses(tmp_path):
@@ -111,5 +139,40 @@ def test_session_resume_and_restart_on_cpu(tmp_path, capsys):
     assert runner.states.accepted.tolist() == [2, 2]
     assert cli.run_session(runner, args) == 0
     ck3 = np.load(out / "checkpoint.npz")
+    assert np.isfinite(ck3["state_psi"]).all()
+    assert (ck3["state_accepted"] >= 3).all() and (out / "deltaLAG_3.dat").exists()
+
+
+def test_sharded_session_resume_and_restart_on_cpu(tmp_path, capsys):
+    """`--sharded` at one rank (a gloo group of one): a session, a resume
+    from checkpoint_sharded.npz, and a restart from deltaLAG_2 + the
+    performance log once the checkpoint is gone (JAX cli.py:83-108)."""
+    par = tmp_path / "input.par"
+    par.write_text(INPUT_PAR)
+    out = tmp_path / "run"
+    common = [str(par), "--device", "cpu", "--sharded", "--no-dashboard",
+              "--out", str(out)]
+
+    assert cli.main(common + ["--samples", "1", "--nan-check"]) == 0
+    diag = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert diag["attempts"] == 16 and len(diag["accepted_per_chain"]) == 1
+    ck1 = dict(np.load(out / "checkpoint_sharded.npz"))
+    assert set(ck1) >= {"state_delta", "state_seed", "state_eps_table"}
+    assert (out / "deltaLAG_1.dat").exists()
+    assert (out / "performance_log.txt").read_text().count("\n") == 17
+
+    assert cli.main(common + ["--resume", "--samples", "2"]) == 0
+    ck2 = dict(np.load(out / "checkpoint_sharded.npz"))
+    assert (ck2["state_count_attempts"] == ck1["state_count_attempts"] + 16).all()
+    assert (out / "deltaLAG_2.dat").exists()
+
+    (out / "checkpoint_sharded.npz").unlink()
+    args = cli.parse_args([str(par), "2"] + common[1:] + ["--samples", "3"])
+    runner = cli.open_session(args)
+    lag2 = bio.read_array(out / "deltaLAG_2", runner.g.shape)
+    assert torch.equal(runner.state["delta"][0], torch.from_numpy(lag2))
+    assert runner.state["accepted"].tolist() == [2]
+    assert cli.run_session(runner, args) == 0
+    ck3 = np.load(out / "checkpoint_sharded.npz")
     assert np.isfinite(ck3["state_psi"]).all()
     assert (ck3["state_accepted"] >= 3).all() and (out / "deltaLAG_3.dat").exists()

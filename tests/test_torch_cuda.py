@@ -208,6 +208,60 @@ def test_cuda_windowless_deposits_are_deterministic(cuda):
     assert_close(r1, assign.tsc_deposit(pos, G))
 
 
+SLAB_CASES = {
+    # (slabs D, halo): one slab of the whole box; 16-row slabs; 8-row slabs
+    # under 24-row windows (halo 8)
+    "one_slab": (1, 8), "two_slabs": (2, 4), "four_slabs": (4, 8)}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("weighted", [False, True])
+@pytest.mark.parametrize("case", sorted(SLAB_CASES))
+def test_cuda_slab_kernels_match_plain(cuda, case, weighted):
+    """K3 and K4 (with and without the value) on every slab of 32^3 with
+    contract violators against their plain versions; K3 bit-identical from
+    call to call."""
+    D, h = SLAB_CASES[case]
+    n1 = G.N1 // D
+    pos = positions(7, 200).to(cuda)
+    for k in range(D):
+        p = pos[:, :, k * n1:(k + 1) * n1].contiguous()
+        w = torch.rand((2, n1) + G.shape[1:], device=cuda) \
+            if weighted else None
+        n3, n4 = tk.tsc_deposit_slab.launches, tk.tsc_gather_grads_slab.launches
+        out = tk.tsc_deposit_slab(p, G, n1, k, h, weights=w)
+        again = tk.tsc_deposit_slab(p, G, n1, k, h, weights=w)
+        torch.cuda.synchronize()
+        assert tk.tsc_deposit_slab.launches == n3 + 2
+        assert torch.equal(out, again)
+        assert_close(out, tk.tsc_deposit_slab_plain(p, G, n1, k, h, weights=w))
+        field = torch.randn(out.shape, device=cuda)
+        for want_value in (False, True):
+            o = tk.tsc_gather_grads_slab(field, p, G, n1, k, h,
+                                         want_value=want_value)
+            r = tk.tsc_gather_grads_slab_plain(field, p, G, n1, k, h,
+                                               want_value=want_value)
+            assert (o - r).abs().max().item() <= 3e-5 * r.abs().max().item()
+        assert tk.tsc_gather_grads_slab.launches == n4 + 2
+
+
+@pytest.mark.gpu
+def test_cuda_measure_spectrum_is_deterministic(cuda):
+    """The binned spectrum sums each bin in a fixed order: 128^3, two calls,
+    the same bits (a float index_add_ on the card differs between calls)."""
+    from barcode_tpu_torch.grid import fourier
+
+    g = GridSpec.cube(128, 200.0)
+    x = torch.randn(g.shape, device=cuda)
+    a = fourier.measure_spectrum(x, g, 200)
+    b = fourier.measure_spectrum(x, g, 200)
+    for u, v in zip(a, b):
+        assert torch.equal(u, v)
+    ref = fourier.measure_spectrum(x.cpu(), g, 200)
+    for u, v in zip(a, ref):
+        assert (u.cpu() - v).abs().max() <= 1e-5 * v.abs().max()
+
+
 @pytest.mark.gpu
 def test_cuda_wrappers_raise_on_bad_tensors(cuda):
     pos = positions(4, 0, chains=1)[0].to(cuda)
