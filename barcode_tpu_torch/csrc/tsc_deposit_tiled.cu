@@ -1,0 +1,565 @@
+// K1 / K1s / K3: windowed 27-point TSC deposit, one kernel for the dense
+// grid and for the extended x-slab, accumulated in shared memory.
+//
+// Replaces the TPU kernels barcode_tpu/forward/pallas_deposit.py:
+// tsc_deposit_pallas (both bodies: the blocked one, call :848, and the
+// streamed one, _make_kernel_dma, call :829; the TPU picks the second only
+// when its VMEM budget overflows, so on Hopper one kernel serves both) and
+// tsc_deposit_pallas_slab (both bodies, calls :716 and :734).
+//
+// The function is that of csrc/tsc_deposit.cu (dense) and
+// csrc/tsc_deposit_slab.cu (slab), bit for bit: the same phase-A arithmetic
+// (tsc_common.cuh), the same window rule per tap, the same per-tap rounding
+// __double2ll_rn((double)(wxy * wz) * scale) into a 64-bit fixed point at
+// the caller's scale, integer sums (so the order of the additions does not
+// matter), the same float conversion, NaN for a chain with a non-finite
+// particle, and zero-weight particles skipped.  The two geometries differ
+// only in x, so the kernel is a template over an x rule:
+//   * DenseX: periodic x through K1's deposit window rule (deposit_axis);
+//   * SlabX: extended rows [0, n1_loc + 2h), the particle's row unwrapped
+//     to the slab and shifted by +h, the block window in extended rows,
+//     taps outside the buffer dropped (K3's geometry).
+// y follows K1's copy rule and z wraps in both.
+//
+// What bounds it on an H100: memory, as K1 — the function must read pos
+// (12 B) and the weight (4 B) and write the output (4 B) per particle.  The
+// push designs it replaces spent 27 global 64-bit atomics per particle,
+// which run at the L2's atomic rate, not at the memory's.
+//
+// Design: one block of 512 threads takes a fixed Lagrangian tile of 16^3
+// particles of one chain (z fastest, so loads coalesce), so every block does
+// the same work however the field has collapsed.
+//   0. The block zeroes its box while its particles' loads are in flight.
+//   1. Each thread computes its particles' base cells (x/y/z unwrapped to
+//      the particle's own row, so a tile's cells are contiguous across the
+//      periodic seam) and the block reduces their min, max and mean.
+//   2. Lane 0 of warp 0 anchors an int64 box in shared memory on
+//      [min - 1, max + 1] per axis.  If that box exceeds `cap` cells, the
+//      longest axis is cut by an eighth until it fits, and a cut axis is
+//      centred on the mean.
+//   3. Every tap that passes the window rule goes into the box with a
+//      shared-memory atomic add, or, outside the box (a far-flung particle
+//      or a cut axis), straight into the global accumulator: the result is
+//      exact for any displacement.  A particle whose 27 cells all lie in
+//      the box takes a path without the per-tap test.
+//   4. The box is flushed once: one global atomic per nonzero cell, at the
+//      cell's wrapped (dense) or extended (slab) target.
+// A second pass converts the global accumulator to float32, as K1's.
+//
+// Measured on the card, the kernel is bound by instruction issue, not by
+// bytes: the hot loops take no integer division where the arguments lie
+// near the grid (exact fast paths, tsc_common.cuh's forms elsewhere), the
+// per-tap rounding takes one conversion (`fixed`), the flush divides by
+// multiplication (`div16`), and each thread's loads are issued before its
+// arithmetic.
+#include <cuda_runtime.h>
+
+#include <climits>
+
+#include "tsc_common.cuh"
+
+namespace {
+
+constexpr int THREADS = 512;
+constexpr int WARPS = THREADS / 32;
+constexpr int TX = 16, TY = 16, TZ = 16;  // a block's tile of particles
+
+// Exact integer helpers without a division where the argument lies near
+// the grid, as every finite particle's does; elsewhere they fall back to
+// tsc_common.cuh's forms, so the result is the same for every input.
+
+// pos_mod(x, n)
+__device__ __forceinline__ int wrap(int x, int n) {
+  if (x >= 0 && x < n) return x;
+  if (x < 0 && x >= -n) return x + n;
+  if (x >= n && x - n < n) return x - n;
+  return tsc::pos_mod(x, n);
+}
+
+// tsc::unwrap(b, q, n): for |b - q| < n the min-image correction is -n, 0
+// or +n
+__device__ __forceinline__ int unwrap(int b, int q, int n) {
+  const int off = b - q;
+  if (off >= -n && off < n) {
+    const int t = 2 * off + n;
+    return t < 0 ? b + n : (t >= 2 * n ? b - n : b);
+  }
+  return tsc::unwrap(b, q, n);
+}
+
+// n / d for 0 <= n, d < 2^16 (box cells and extents), m = 2^32 / d + 1:
+// n * m / 2^32 exceeds n / d by less than 2^-16, less than the distance of
+// n / d from the next integer, so the floor is exact
+__device__ __forceinline__ int div16(int n, unsigned long long m) {
+  return (int)(((unsigned long long)n * m) >> 32);
+}
+
+// (x / B) * B for x >= 0; B a power of two takes a mask
+__device__ __forceinline__ int block_start(int x, int B, bool pow2) {
+  return pow2 ? (x & -B) : (x / B) * B;
+}
+
+// One axis of the deposit window rule, tsc::deposit_axis without divisions
+__device__ __forceinline__ bool deposit_axis(int bu, int q, int n, int B,
+                                             bool pow2, int h, int o,
+                                             int* target) {
+  const int X = bu + o;
+  const int Xw = wrap(X, n);
+  const int qq = q + (Xw - X);
+  const int lo = block_start(Xw, B, pow2) - h;
+  *target = Xw;
+  return qq >= lo && qq < lo + B + 2 * h;
+}
+
+// the dense grid's x: unwrapped to the row, K1's deposit window rule
+struct DenseX {
+  int N1, BX, hx;
+  __device__ __forceinline__ int base(int bx, int r) const {
+    return unwrap(bx, r, N1);
+  }
+  __device__ __forceinline__ bool tap(int bu, int r, int o, bool pow2,
+                                      int* t) const {
+    return deposit_axis(bu, r, N1, BX, pow2, hx, o, t);
+  }
+  __device__ __forceinline__ int target(int X) const { return wrap(X, N1); }
+};
+
+// the slab's x (csrc/tsc_deposit_slab.cu): extended rows, nothing wraps
+struct SlabX {
+  int N1, start, h, BX, n1_ext;
+  __device__ __forceinline__ int base(int bx, int r) const {
+    return unwrap(bx, start + r, N1) - start + h;
+  }
+  __device__ __forceinline__ bool tap(int bu, int r, int o, bool pow2,
+                                      int* t) const {
+    const int X = bu + o;
+    const int lo = X >= 0 ? block_start(X, BX, pow2) - h : 0;
+    const int q = r + h;
+    *t = X;
+    return X >= 0 && X < n1_ext && q >= lo && q < lo + BX + 2 * h;
+  }
+  __device__ __forceinline__ int target(int X) const { return X; }
+};
+
+// Adds v into a cell of the shared-memory box.  A 64-bit shared-memory
+// atomic add compiles to a compare-and-swap loop on sm_90a
+// (ATOMS.CAST.SPIN.64), much slower here, so the cell is two 32-bit words
+// (little endian: the 8 bytes read back as the sum) added with native
+// 32-bit atomics: the low word's old value gives the carry into the high
+// word exactly, so the pair holds the 64-bit sum modulo 2^64 in any order
+// of the additions.  The high add is issued even when it adds 0: a branch
+// around it measured slower.
+__device__ __forceinline__ void box_add(unsigned long long* cell,
+                                        unsigned long long v) {
+  unsigned* w = reinterpret_cast<unsigned*>(cell);
+  const unsigned lo = (unsigned)v;
+  const unsigned old = atomicAdd(w, lo);
+  atomicAdd(w + 1, (unsigned)(v >> 32) + (old + lo < old ? 1u : 0u));
+}
+
+// K1's per-tap rounding __double2ll_rn((double)p * scale).  For a scale
+// 2^e with 0 <= e <= 126, p * 2^e is exact in float32 as in float64, so
+// rounding the float gives the same integer with one conversion fewer.
+template <bool FLOAT_SCALE>
+__device__ __forceinline__ long long fixed(float p, double scale,
+                                           float scalef) {
+  if (FLOAT_SCALE) return __float2ll_rn(p * scalef);
+  return __double2ll_rn((double)p * scale);
+}
+
+// A particle's position and weight, as loaded; w = 0 outside the grid
+struct Particle {
+  float x, y, z, w;
+};
+
+// One particle's phase A (tsc_common.cuh): false for a zero-weight particle
+// (skipped) and for a non-finite one (which marks its chain).  The x/y/z
+// bases come back unwrapped to the particle's own row.
+template <class XRule>
+__device__ __forceinline__ bool phase_a(const Particle& pt, const XRule& xr,
+                                        int qx, int qy, int qz, int N2,
+                                        int N3, float d1, float d2, float d3,
+                                        int& b0, int& b1, int& b2, float& f0,
+                                        float& f1, float& f2, int& bad) {
+  if (pt.w == 0.0f) return false;
+  int bx, by, bz;
+  tsc::base_frac(pt.x, d1, &bx, &f0);
+  tsc::base_frac(pt.y, d2, &by, &f1);
+  tsc::base_frac(pt.z, d3, &bz, &f2);
+  if (!(isfinite(f0) && isfinite(f1) && isfinite(f2) && isfinite(pt.w))) {
+    bad = 1;
+    return false;
+  }
+  b0 = xr.base(bx, qx);
+  b1 = unwrap(by, qy, N2);
+  b2 = unwrap(bz, qz, N3);  // congruent to K1's wrapped z base
+  return true;
+}
+
+constexpr int PER = TX * TY * TZ / THREADS;  // particles a thread
+
+// The block's tile, and this thread's particles in it: particle j of the
+// thread is the tile's particle threadIdx.x + j * THREADS, z fastest, so
+// consecutive threads read consecutive z.
+struct Tile {
+  int x0, y0, z0;
+  __device__ Tile(int N2, int N3) {
+    const int ntz = (N3 + TZ - 1) / TZ, nty = (N2 + TY - 1) / TY;
+    z0 = (int)(blockIdx.x % ntz) * TZ;
+    y0 = (int)(blockIdx.x / ntz % nty) * TY;
+    x0 = (int)(blockIdx.x / (ntz * nty)) * TX;
+  }
+  __device__ __forceinline__ void coords(int j, int& qx, int& qy,
+                                         int& qz) const {
+    const int i = (int)threadIdx.x + j * THREADS;
+    qz = z0 + i % TZ;
+    qy = y0 + i / TZ % TY;
+    qx = x0 + i / (TZ * TY);
+  }
+  // particle j's position and weight (weight 0 outside the grid); the
+  // weight does not gate the position loads, so all four are in flight
+  // together
+  __device__ __forceinline__ Particle load(const float* p, const float* w,
+                                           long long N, int R, int N2,
+                                           int N3, int j) const {
+    int qx, qy, qz;
+    coords(j, qx, qy, qz);
+    if (qx >= R || qy >= N2 || qz >= N3)
+      return Particle{0.0f, 0.0f, 0.0f, 0.0f};
+    const long long gi = ((long long)qx * N2 + qy) * N3 + qz;
+    return Particle{p[gi], p[N + gi], p[2 * N + gi],
+                    w != nullptr ? w[gi] : 1.0f};
+  }
+};
+
+// 3. the taps of the block's particles, into the box or, outside it, into
+// the global accumulator
+template <bool FLOAT_SCALE, class XRule>
+__device__ __forceinline__ void deposit_taps(
+    const float* p, const float* w, long long N, const XRule& xr,
+    const Tile& tile, int R, int N2, int N3, float d1, float d2, float d3,
+    int BY, int hy, bool pow2x, bool pow2y, double scale,
+    unsigned long long* box, unsigned long long* out, int lo0, int lo1,
+    int lo2, int E0, int E1, int E2) {
+  const float scalef = (float)scale;
+  int flag = 0;
+  Particle next = tile.load(p, w, N, R, N2, N3, 0);
+#pragma unroll 1
+  for (int j = 0; j < PER; ++j) {
+    const Particle pt = next;
+    if (j + 1 < PER) next = tile.load(p, w, N, R, N2, N3, j + 1);
+    int qx, qy, qz;
+    tile.coords(j, qx, qy, qz);
+    int b0, b1, b2;
+    float f0, f1, f2;
+    if (!phase_a(pt, xr, qx, qy, qz, N2, N3, d1, d2, d3, b0, b1, b2, f0, f1,
+                 f2, flag))
+      continue;
+    const float wm = pt.w;
+    int gx[3], gy[3], gz[3];
+    bool mx[3], my[3], ix[3], iy[3], iz[3];
+    float wx[3], wy[3], wz[3];
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      const int o = k - 1;
+      mx[k] = xr.tap(b0, qx, o, pow2x, &gx[k]);
+      my[k] = deposit_axis(b1, qy, N2, BY, pow2y, hy, o, &gy[k]);
+      gz[k] = wrap(b2 + o, N3);
+      // box coordinates, unsigned so that any base compares safely
+      ix[k] = (unsigned)(b0 + o) - (unsigned)lo0 < (unsigned)E0;
+      iy[k] = (unsigned)(b1 + o) - (unsigned)lo1 < (unsigned)E1;
+      iz[k] = (unsigned)(b2 + o) - (unsigned)lo2 < (unsigned)E2;
+      wx[k] = tsc::tsc_w(f0, o);
+      wy[k] = tsc::tsc_w(f1, o);
+      wz[k] = wm * tsc::tsc_w(f2, o);
+    }
+    const int rx = b0 - 1 - lo0, ry = b1 - 1 - lo1, rz = b2 - 1 - lo2;
+    // the whole 3 x 3 x 3 stencil inside the box: no per-tap test (on an
+    // H100, 17% faster on the 256^3 path's own positions, 3% slower on the
+    // truth's clustered ones)
+    if (rx >= 0 && rx < E0 - 2 && ry >= 0 && ry < E1 - 2 && rz >= 0 &&
+        rz < E2 - 2) {
+      unsigned long long* cell = box + (rx * E1 + ry) * E2 + rz;
+#pragma unroll
+      for (int a = 0; a < 3; ++a) {
+        if (!mx[a]) continue;
+#pragma unroll
+        for (int bb = 0; bb < 3; ++bb) {
+          if (!my[bb]) continue;
+          const float wxy = wx[a] * wy[bb];
+          unsigned long long* row = cell + (a * E1 + bb) * E2;
+#pragma unroll
+          for (int k = 0; k < 3; ++k)
+            box_add(row + k, (unsigned long long)fixed<FLOAT_SCALE>(
+                                 wxy * wz[k], scale, scalef));
+        }
+      }
+      continue;
+    }
+#pragma unroll
+    for (int a = 0; a < 3; ++a) {
+      if (!mx[a]) continue;
+#pragma unroll
+      for (int bb = 0; bb < 3; ++bb) {
+        if (!my[bb]) continue;
+        const float wxy = wx[a] * wy[bb];
+        const bool in_xy = ix[a] && iy[bb];
+        const int row = ((rx + a) * E1 + (ry + bb)) * E2 + rz;
+        unsigned long long* grow =
+            out + ((long long)gx[a] * N2 + gy[bb]) * N3;
+#pragma unroll
+        for (int k = 0; k < 3; ++k) {
+          const unsigned long long v = (unsigned long long)fixed<FLOAT_SCALE>(
+              wxy * wz[k], scale, scalef);
+          if (in_xy && iz[k])
+            box_add(box + row + k, v);
+          else
+            atomicAdd(grow + gz[k], v);
+        }
+      }
+    }
+  }
+}
+
+// min, max and sum of the base cells, and the count, over a warp
+__device__ __forceinline__ void warp_reduce(int* mn, int* mx, long long* sm,
+                                            int& cnt) {
+#pragma unroll
+  for (int s = 16; s > 0; s >>= 1) {
+#pragma unroll
+    for (int a = 0; a < 3; ++a) {
+      mn[a] = min(mn[a], __shfl_xor_sync(0xffffffffu, mn[a], s));
+      mx[a] = max(mx[a], __shfl_xor_sync(0xffffffffu, mx[a], s));
+      sm[a] += __shfl_xor_sync(0xffffffffu, sm[a], s);
+    }
+    cnt += __shfl_xor_sync(0xffffffffu, cnt, s);
+  }
+}
+
+// blockIdx.x = tile (z fastest, then y, then x), blockIdx.y = chain.  R is
+// the particle grid's x extent (N1 dense, n1_loc slab), out_rows the
+// output's (N1 dense, n1_loc + 2h slab).
+template <class XRule>
+__global__ void __launch_bounds__(THREADS, 2) tsc_deposit_tiled_kernel(
+    const float* __restrict__ pos, const float* __restrict__ weights,
+    const double* __restrict__ scale_p, unsigned long long* __restrict__ acc,
+    int* __restrict__ bad, const XRule xr, int R, int N2, int N3,
+    int out_rows, float d1, float d2, float d3, int BX, int BY, int hy,
+    int cap) {
+  extern __shared__ unsigned long long box[];
+  __shared__ int s_min[WARPS][3], s_max[WARPS][3];
+  __shared__ long long s_sum[WARPS][3];
+  __shared__ int s_cnt[WARPS];
+  __shared__ int s_lo[3], s_ext[3];
+
+  const int c = blockIdx.y;
+  const Tile tile(N2, N3);
+  const long long N = (long long)R * N2 * N3;
+  const float* p = pos + (long long)c * 3 * N;
+  const float* w = weights != nullptr ? weights + (long long)c * N : nullptr;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+
+  // 0. the box's cells to zero (all `cap`, while the loads are in flight)
+  for (int i = threadIdx.x; i < cap; i += THREADS) box[i] = 0ull;
+
+  // 1. the tile's range of base cells
+  int mn[3] = {INT_MAX, INT_MAX, INT_MAX}, mx[3] = {INT_MIN, INT_MIN, INT_MIN};
+  long long sm[3] = {0, 0, 0};
+  int cnt = 0, flag = 0;
+  Particle pts[PER];
+#pragma unroll
+  for (int j = 0; j < PER; ++j) pts[j] = tile.load(p, w, N, R, N2, N3, j);
+#pragma unroll
+  for (int j = 0; j < PER; ++j) {
+    int qx, qy, qz, b[3];
+    float f0, f1, f2;
+    tile.coords(j, qx, qy, qz);
+    if (!phase_a(pts[j], xr, qx, qy, qz, N2, N3, d1, d2, d3, b[0], b[1],
+                 b[2], f0, f1, f2, flag))
+      continue;
+#pragma unroll
+    for (int a = 0; a < 3; ++a) {
+      mn[a] = min(mn[a], b[a]);
+      mx[a] = max(mx[a], b[a]);
+      sm[a] += b[a];
+    }
+    ++cnt;
+  }
+  if (flag) bad[c] = 1;
+  warp_reduce(mn, mx, sm, cnt);
+  if (lane == 0) {
+#pragma unroll
+    for (int a = 0; a < 3; ++a) {
+      s_min[warp][a] = mn[a];
+      s_max[warp][a] = mx[a];
+      s_sum[warp][a] = sm[a];
+    }
+    s_cnt[warp] = cnt;
+  }
+  __syncthreads();
+
+  // 2. the box, by warp 0: the warps' partials reduced across its lanes
+  if (warp == 0) {
+    const bool has = lane < WARPS;
+#pragma unroll
+    for (int a = 0; a < 3; ++a) {
+      mn[a] = has ? s_min[lane][a] : INT_MAX;
+      mx[a] = has ? s_max[lane][a] : INT_MIN;
+      sm[a] = has ? s_sum[lane][a] : 0;
+    }
+    cnt = has ? s_cnt[lane] : 0;
+    warp_reduce(mn, mx, sm, cnt);
+    if (lane == 0) {
+      long long ext[3], full[3];
+      for (int a = 0; a < 3; ++a) {
+        full[a] = cnt > 0 ? (long long)mx[a] - mn[a] + 3 : 0;
+        ext[a] = min(full[a], (long long)cap);
+      }
+      while (ext[0] * ext[1] * ext[2] > cap) {
+        const int a = ext[0] >= ext[1] ? (ext[0] >= ext[2] ? 0 : 2)
+                                       : (ext[1] >= ext[2] ? 1 : 2);
+        ext[a] -= max(1ll, ext[a] / 8);
+      }
+      for (int a = 0; a < 3; ++a) {
+        long long l = (long long)mn[a] - 1;
+        if (ext[a] < full[a]) {  // cut: centre on the mean, inside the range
+          l = sm[a] / cnt - ext[a] / 2;
+          l = max((long long)mn[a] - 1, min(l, (long long)mx[a] + 2 - ext[a]));
+        }
+        s_lo[a] = (int)l;
+        s_ext[a] = (int)ext[a];
+      }
+    }
+  }
+  __syncthreads();
+  const int lo0 = s_lo[0], lo1 = s_lo[1], lo2 = s_lo[2];
+  const int E0 = s_ext[0], E1 = s_ext[1], E2 = s_ext[2];
+
+  // 3. the taps
+  unsigned long long* out = acc + (long long)c * out_rows * N2 * N3;
+  const double scale = *scale_p;
+  const bool pow2x = (BX & (BX - 1)) == 0, pow2y = (BY & (BY - 1)) == 0;
+  if (scale >= 1.0 && scale <= 0x1p126)
+    deposit_taps<true>(p, w, N, xr, tile, R, N2, N3, d1, d2, d3, BY, hy,
+                       pow2x, pow2y, scale, box, out, lo0, lo1, lo2, E0, E1,
+                       E2);
+  else
+    deposit_taps<false>(p, w, N, xr, tile, R, N2, N3, d1, d2, d3, BY, hy,
+                        pow2x, pow2y, scale, box, out, lo0, lo1, lo2, E0, E1,
+                        E2);
+  __syncthreads();
+
+  // 4. the flush: one global atomic per nonzero cell
+  const int n_box = E0 * E1 * E2;
+  const unsigned long long m2 = n_box ? (1ull << 32) / E2 + 1 : 0,
+                           m1 = n_box ? (1ull << 32) / E1 + 1 : 0;
+  for (int i = threadIdx.x; i < n_box; i += THREADS) {
+    const unsigned long long v = box[i];
+    if (v == 0ull) continue;
+    const int r = div16(i, m2), z = i - r * E2;
+    const int x = div16(r, m1), y = r - x * E1;
+    atomicAdd(out + ((long long)xr.target(lo0 + x) * N2 + wrap(lo1 + y, N2)) *
+                        N3 + wrap(lo2 + z, N3),
+              v);
+  }
+}
+
+// fixed point (two's complement in the unsigned accumulator) -> float32;
+// blockIdx.y is the chain, whose cells read NaN if it holds a non-finite
+// particle
+__global__ void tiled_fixed_to_float_kernel(
+    const unsigned long long* __restrict__ acc,
+    const double* __restrict__ scale_p, const int* __restrict__ bad,
+    float* __restrict__ out, long long n_chain) {
+  const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (t >= n_chain) return;
+  const long long i = blockIdx.y * n_chain + t;
+  out[i] = bad[blockIdx.y] ? __int_as_float(0x7fc00000)
+                           : (float)((double)(long long)acc[i] / *scale_p);
+}
+
+// the kernel's attributes: `cap` cells of dynamic shared memory, and the
+// whole of the SM's unified L1/shared memory given to shared memory (the
+// runtime's default carveout may leave room for one block only)
+template <class XRule>
+cudaError_t configure(int cap) {
+  auto kernel = tsc_deposit_tiled_kernel<XRule>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      cap * (int)sizeof(unsigned long long));
+  if (err != cudaSuccess) return err;
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributePreferredSharedMemoryCarveout,
+                              (int)cudaSharedmemCarveoutMaxShared);
+}
+
+template <class XRule>
+cudaError_t launch(const float* pos, const float* weights,
+                   const double* scale_p, unsigned long long* acc, int* bad,
+                   const XRule& xr, int C, int R, int N2, int N3,
+                   int out_rows, float d1, float d2, float d3, int BX, int BY,
+                   int hy, int cap, cudaStream_t s) {
+  cudaError_t err = configure<XRule>(cap);
+  if (err != cudaSuccess) return err;
+  const unsigned tiles = (unsigned)(((R + TX - 1) / TX) *
+                                    ((N2 + TY - 1) / TY) *
+                                    ((N3 + TZ - 1) / TZ));
+  tsc_deposit_tiled_kernel<XRule>
+      <<<dim3(tiles, (unsigned)C), THREADS,
+         cap * sizeof(unsigned long long), s>>>(
+          pos, weights, scale_p, acc, bad, xr, R, N2, N3, out_rows, d1, d2,
+          d3, BX, BY, hy, cap);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// pos: (C, 3, R, N2, N3) float32; weights: (C, R, N2, N3) or null; acc:
+// C*out_rows*N2*N3 int64 zeros; bad: C int zeros; scale_p: one double 2^e
+// on the device (tsc_kernels._fixed_point_scale); out: C*out_rows*N2*N3
+// floats.  slab = 0: the dense grid (R = out_rows = N1; `start` unused);
+// slab = 1: slab rows [start, start + R) into out_rows = R + 2*hx extended
+// rows, with hx = hy = h.  `cap` is the box's cells (cap * 8 bytes of
+// dynamic shared memory, cap < 2^16).  One block takes TX x TY x TZ
+// particles.  Returns the first CUDA error of the launches.
+extern "C" int tsc_deposit_tiled_launch(
+    const float* pos, const float* weights, const double* scale_p,
+    unsigned long long* acc, int* bad, float* out, int C, int R, int N1,
+    int N2, int N3, float d1, float d2, float d3, int start, int BX, int BY,
+    int hx, int hy, int slab, int cap, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  const int out_rows = slab ? R + 2 * hx : N1;
+  cudaError_t err;
+  if (slab) {
+    const SlabX xr{N1, start, hx, BX, out_rows};
+    err = launch(pos, weights, scale_p, acc, bad, xr, C, R, N2, N3, out_rows,
+                 d1, d2, d3, BX, BY, hy, cap, s);
+  } else {
+    const DenseX xr{N1, BX, hx};
+    err = launch(pos, weights, scale_p, acc, bad, xr, C, R, N2, N3, out_rows,
+                 d1, d2, d3, BX, BY, hy, cap, s);
+  }
+  if (err != cudaSuccess) return (int)err;
+  const long long n_chain = (long long)out_rows * N2 * N3;
+  const int threads = 256;
+  tiled_fixed_to_float_kernel<<<
+      dim3((unsigned)((n_chain + threads - 1) / threads), (unsigned)C),
+      threads, 0, s>>>(acc, scale_p, bad, out, n_chain);
+  return (int)cudaGetLastError();
+}
+
+// Blocks of the dense (slab = 0) or slab kernel resident on one SM at a box
+// of `cap` cells, as the occupancy calculator reports it; a negative CUDA
+// error code on failure.
+extern "C" int tsc_deposit_tiled_blocks_per_sm(int cap, int slab) {
+  cudaError_t err = slab ? configure<SlabX>(cap) : configure<DenseX>(cap);
+  int n = 0;
+  if (err == cudaSuccess) {
+    const size_t smem = cap * sizeof(unsigned long long);
+    err = slab ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                     &n, tsc_deposit_tiled_kernel<SlabX>, THREADS, smem)
+               : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                     &n, tsc_deposit_tiled_kernel<DenseX>, THREADS, smem);
+  }
+  return err == cudaSuccess ? n : -(int)err;
+}

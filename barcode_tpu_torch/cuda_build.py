@@ -24,8 +24,8 @@ import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("tsc_deposit.cu", "tsc_deposit_stream.cu", "tsc_gather.cu",
-           "tsc_deposit_slab.cu", "tsc_gather_slab.cu")
+SOURCES = ("tsc_deposit_tiled.cu", "tsc_deposit.cu", "tsc_deposit_stream.cu",
+           "tsc_gather.cu", "tsc_deposit_slab.cu", "tsc_gather_slab.cu")
 HEADERS = ("tsc_common.cuh",)
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 COMPILE_FLAGS = ARCH_FLAGS + ("-O3", "-std=c++17", "-Xcompiler", "-fPIC",
@@ -36,6 +36,9 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 # C signatures of csrc/*.cu (pointers and the stream as void*)
 SIGNATURES = {
+    "tsc_deposit_tiled_launch":
+        [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _F, _I, _I, _I,
+         _I, _I, _I, _I, _P],
     "tsc_deposit_window_launch":
         [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _I, _I, _I, _I,
          _P],
@@ -143,10 +146,61 @@ def load() -> tuple[ctypes.CDLL, BuildInfo]:
         for fn, argtypes in SIGNATURES.items():
             getattr(lib, fn).argtypes = argtypes
             getattr(lib, fn).restype = ctypes.c_int
+        lib.tsc_deposit_tiled_blocks_per_sm.argtypes = [_I, _I]
+        lib.tsc_deposit_tiled_blocks_per_sm.restype = ctypes.c_int
         lib.tsc_cuda_error_string.argtypes = [ctypes.c_int]
         lib.tsc_cuda_error_string.restype = ctypes.c_char_p
         _loaded = (lib, info)
     return _loaded
+
+
+def sass(path: Path, name: str) -> str:
+    """The SASS (`cuobjdump -sass`, beside nvcc) of the library's functions
+    whose mangled name contains `name`."""
+    tool = Path(find_nvcc()).with_name("cuobjdump")
+    text = subprocess.run([str(tool), "-sass", str(path)], capture_output=True,
+                          text=True, check=True, timeout=300).stdout
+    parts = text.split("Function : ")[1:]
+    return "".join("Function : " + p for p in parts
+                   if name in p.split("\n", 1)[0])
+
+
+# one 64-bit atomic add into shared memory, compiled alone to read its SASS
+_SHARED_ADD64 = """
+__global__ void shared_add64(unsigned long long* out, unsigned long long v) {
+  __shared__ unsigned long long s;
+  if (threadIdx.x == 0) s = 0;
+  __syncthreads();
+  atomicAdd(&s, v);
+  __syncthreads();
+  if (threadIdx.x == 0) *out = s;
+}
+"""
+
+
+def shared_add64_opcodes() -> list[str]:
+    """The shared-memory atomic opcodes (ATOMS...) that a 64-bit
+    `atomicAdd` into shared memory compiles to for sm_90a: a single
+    ATOMS.ADD.64 where the add is native, a compare-and-swap loop
+    (ATOMS.CAS... or ATOMS.CAST...) where it is not."""
+    out = build_dir()
+    out.mkdir(parents=True, exist_ok=True)
+    src = out / f"shared_add64.{os.getpid()}.cu"
+    cubin = src.with_suffix(".cubin")
+    src.write_text(_SHARED_ADD64)
+    try:
+        subprocess.run([find_nvcc(), *ARCH_FLAGS, "-cubin", "-o", str(cubin),
+                        str(src)], capture_output=True, text=True, check=True,
+                       timeout=300)
+        text = subprocess.run(
+            [str(Path(find_nvcc()).with_name("cuobjdump")), "-sass",
+             str(cubin)], capture_output=True, text=True, check=True,
+            timeout=300).stdout
+    finally:
+        src.unlink(missing_ok=True)
+        cubin.unlink(missing_ok=True)
+    return sorted({tok for line in text.splitlines() for tok in line.split()
+                   if tok.startswith("ATOMS")})
 
 
 def check(lib: ctypes.CDLL, status: int, what: str) -> None:

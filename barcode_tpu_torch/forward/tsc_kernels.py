@@ -5,17 +5,14 @@ Port of barcode_tpu/forward/pallas_deposit.py.  The TPU kernels there
 compute TSC with a *window* rule that the port must reproduce, because it
 decides what a particle that breaks the halo contract contributes:
 
-  * K1 `tsc_deposit_window` (TPU: `tsc_deposit_pallas`): each (BX, BY)
-    output block sums only the particles of its Lagrangian window
-    [I*BX - hx, I*BX + BX + hx) x [J*BY - hy, ...), x/y wrapping through
-    +-N copies of the particle grid.  A violator deposits PARTIAL mass.
-    Effective halos: hx rounded by `_round_halo(hx, BX)`, hy tight.
-  * K1s, `tsc_deposit_window(..., stream=True)` (TPU: the streamed-window
-    body of `tsc_deposit_pallas(stream=True)`): the same function as K1,
-    bit for bit, computed by a pull kernel whose thread-block clusters own
-    their output columns in shared memory and stream each window through
-    it.  `stream=None` selects it exactly where the JAX package selects its
-    streamed kernel (`stream_selected`).
+  * K1 `tsc_deposit_window` (TPU: `tsc_deposit_pallas`, both of its
+    bodies): each (BX, BY) output block sums only the particles of its
+    Lagrangian window [I*BX - hx, I*BX + BX + hx) x [J*BY - hy, ...), x/y
+    wrapping through +-N copies of the particle grid.  A violator deposits
+    PARTIAL mass.  Effective halos: hx rounded by `_round_halo(hx, BX)`, hy
+    tight.  K1s, the TPU's streamed body (`stream=True`), computes the same
+    function; it exists only for the TPU's VMEM budget, so the argument is
+    kept for parity with the JAX API and selects nothing on the card.
   * K2 `tsc_gather_grads_window` (TPU: `tsc_gather_grads_pallas`): the TSC
     value and three position derivatives (divided by the cell size) of a
     field, counting only taps inside the field window of the particle's
@@ -30,24 +27,37 @@ decides what a particle that breaks the halo contract contributes:
 
 Each wrapper takes a CPU tensor to its plain PyTorch version, written with
 the same window semantics (the tests hold these against the Pallas kernels
-in interpret mode), and a CUDA tensor to its hand-written CUDA kernel
-(`csrc/tsc_deposit.cu`, `csrc/tsc_deposit_stream.cu`, `csrc/tsc_gather.cu`,
-`csrc/tsc_deposit_slab.cu`, `csrc/tsc_gather_slab.cu`).  There is no
-fallback: a CUDA tensor launches the kernel or raises.  Each kernel's
-launches are counted in the `launches` attribute of its launcher:
-`tsc_deposit_window` (K1), `tsc_deposit_window_stream` (K1s),
+in interpret mode), and a CUDA tensor to its hand-written CUDA kernel.
+Both deposits launch one shared-memory kernel, `csrc/tsc_deposit_tiled.cu`,
+in its dense or its slab geometry; the gathers launch `csrc/tsc_gather.cu`
+and `csrc/tsc_gather_slab.cu`.  There is no fallback: a CUDA tensor
+launches the kernel or raises.  Each kernel's launches are counted in the
+`launches` attribute of its launcher: `tsc_deposit_window` (K1),
 `tsc_gather_grads_window` (K2), `tsc_deposit_slab` (K3) and
 `tsc_gather_grads_slab` (K4).
+
+The deposits' earlier kernels stay built as witnesses: the bit-for-bit
+yardstick of the tiled kernel on the card, timed beside it.  Only an
+explicit `impl=` reaches them (`"push"`: csrc/tsc_deposit.cu and
+csrc/tsc_deposit_slab.cu, one thread per particle with global atomics;
+`"pull"`: csrc/tsc_deposit_stream.cu, the streamed-window K1s), and they
+count their launches apart: `tsc_deposit_window_push`,
+`tsc_deposit_window_stream`, `tsc_deposit_slab_push`.  No path of the
+program passes `impl`.
 
 Positions are (3,) + grid or (C, 3) + grid for C chains (one launch covers
 all chains); weights and fields are grid or (C,) + grid.
 
 The halo helpers (`deposit_violations`, `displacement_bound_cells`,
-`displacement_halo_quantile`) and the block gate (`deposit_working_set_bytes`,
-used by `assign.auto_block_dep` so both packages pick the same windows) are
-ported alongside.
+`displacement_halo_quantile`) and the block and stream gates
+(`deposit_working_set_bytes`, used by `assign.auto_block_dep` so both
+packages pick the same windows, and `stream_selected`, kept for parity with
+the JAX package) are ported alongside.
 """
 from __future__ import annotations
+
+import dataclasses
+import math
 
 import torch
 
@@ -108,7 +118,8 @@ def stream_selected(g: GridSpec, halo, block: tuple,
                     weighted: bool = False) -> bool:
     """The JAX package's choice of its streamed deposit body
     (pallas_deposit.py:815-817): the full window's working set over
-    DEP_VMEM_BUDGET.  K1s runs wherever this is True."""
+    DEP_VMEM_BUDGET.  Kept for parity with the JAX API: on the card every
+    deposit takes the tiled kernel, whatever this says."""
     return deposit_working_set_bytes(g, halo, block,
                                      weighted=weighted) > DEP_VMEM_BUDGET
 
@@ -164,8 +175,6 @@ def _offset_histogram(delta, g: GridSpec, fc, gp):
     """bincount of max(|x off|, |y off|) cells of the particle map for
     `delta` (RSD off: the x/y contract is RSD-free), pallas_deposit.py:
     591-620.  Over the full min-image range, so nothing is dropped."""
-    import dataclasses
-
     import numpy as np
 
     from barcode_tpu_torch.forward.lag2eul import displaced_positions
@@ -358,33 +367,108 @@ def _fixed_point_scale(weights, n_per_chain: int, device):
     every weight is 0.  (Non-finite weights make their chain NaN.)"""
     if weights is None:
         wmax = torch.ones((), dtype=torch.float64, device=device)
-    else:
-        finite = torch.isfinite(weights)
-        wmax = torch.where(finite, weights.abs(), 0.0).max().double()
+    else:  # max |w| over the finite weights, in two passes
+        wmax = torch.linalg.vector_norm(
+            torch.nan_to_num(weights, nan=0.0, posinf=0.0, neginf=0.0),
+            float("inf")).double()
     e = torch.floor(62.0 - torch.log2(wmax * n_per_chain))
     e = torch.where(wmax > 0, e, torch.zeros_like(e)).clamp(-1000.0, 1000.0)
     return torch.exp2(e)
 
 
+# The tiled deposit (csrc/tsc_deposit_tiled.cu, whose THREADS and TX, TY, TZ
+# these mirror): one block of TILED_THREADS threads takes a Lagrangian tile of
+# TILED_TILE particles of one chain (ragged at the grid's edges) and
+# accumulates its taps in an int64 box of at most TILED_BOX_CELLS cells of
+# shared memory (108 KB, so two blocks share an SM's 228 KB); taps outside
+# the box go straight to the global accumulator.
+TILED_TILE = (16, 16, 16)
+TILED_THREADS = 512
+TILED_BOX_CELLS = 13824
+SM_SHARED_BYTES = 228 * 1024  # an H100 SM's shared memory
+BLOCK_SHARED_MAX = 227 * 1024  # what one block may use
+BLOCK_SHARED_RESERVED = 1024  # the runtime's share of each resident block
+# the kernel's static shared memory (per-warp min, max, sum and count, the
+# box's origin and extents: 864 bytes in ptxas's report), rounded up
+STATIC_SHARED_BYTES = 1024
+
+
+@dataclasses.dataclass(frozen=True)
+class TiledPlan:
+    """The tiled deposit's launch: particle tile (x, y, z) of one block,
+    threads per block, box cells, dynamic shared-memory bytes and the grid
+    (tiles, chains)."""
+    tile: tuple
+    threads: int
+    box_cells: int
+    smem_bytes: int
+    grid: tuple
+
+    @property
+    def blocks_per_sm(self) -> int:
+        """Blocks that fit one SM's shared memory at once."""
+        return SM_SHARED_BYTES // (self.smem_bytes + STATIC_SHARED_BYTES
+                                   + BLOCK_SHARED_RESERVED)
+
+
+def tiled_plan(rows: int, n2: int, n3: int, chains: int) -> TiledPlan:
+    """The tiled deposit's launch for a particle grid of rows x n2 x n3
+    (N1 dense, n1_loc for a slab) and `chains` chains."""
+    tiles = math.prod(-(-n // t) for t, n in zip(TILED_TILE, (rows, n2, n3)))
+    return TiledPlan(TILED_TILE, TILED_THREADS, TILED_BOX_CELLS,
+                     8 * TILED_BOX_CELLS, (tiles, chains))
+
+
+_DEPOSIT_IMPLS = ("tiled", "push", "pull")
+
+
+def _deposit_tiled(pos, weights, g: GridSpec, rows: int, out_rows: int,
+                   start: int, block: tuple, hx: int, hy: int, slab: bool):
+    """Launches csrc/tsc_deposit_tiled.cu; returns (library, status,
+    output) for the caller to check and count."""
+    from barcode_tpu_torch import cuda_build
+
+    lib, _ = cuda_build.load()
+    batch = tuple(pos.shape[:-4])
+    C = batch[0] if batch else 1
+    plan = tiled_plan(rows, g.N2, g.N3, C)
+    shape = batch + (out_rows, g.N2, g.N3)
+    scale = _fixed_point_scale(weights, rows * g.N2 * g.N3, pos.device)
+    acc = torch.zeros(shape, dtype=torch.int64, device=pos.device)
+    bad = torch.zeros(C, dtype=torch.int32, device=pos.device)
+    out = torch.empty(shape, dtype=torch.float32, device=pos.device)
+    d1, d2, d3 = g.cell
+    with torch.cuda.device(pos.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        status = lib.tsc_deposit_tiled_launch(
+            pos.data_ptr(), weights.data_ptr() if weights is not None else None,
+            scale.data_ptr(), acc.data_ptr(), bad.data_ptr(), out.data_ptr(),
+            C, rows, g.N1, g.N2, g.N3, d1, d2, d3, start, block[0], block[1],
+            hx, hy, int(slab), plan.box_cells, stream)
+    return lib, status, out
+
+
 def tsc_deposit_window(pos, g: GridSpec, halo=4, block=(8, 8), weights=None,
-                       stream=None):
-    """K1 or K1s: windowed TSC deposit (TPU: pallas_deposit.tsc_deposit_pallas).
+                       stream=None, impl="tiled"):
+    """K1: windowed TSC deposit (TPU: pallas_deposit.tsc_deposit_pallas).
 
     `halo` is the requested contract (int or (hx, hy)); hx is rounded as
-    on the TPU.  `stream=None` picks K1s where the JAX package streams
-    (`stream_selected`), K1 elsewhere; True/False force the choice, as the
-    JAX argument does.  Returns grid or (C,) + grid float32.
+    on the TPU.  `stream` is the JAX argument that picks the TPU's streamed
+    body (K1s); the two bodies compute one function, so it selects nothing
+    here.  Returns grid or (C,) + grid float32.
 
     CPU tensors take the plain version, `tsc_deposit_window_plain`, for
-    either choice: the TPU's two bodies compute one function, and the JAX
-    package's tests hold both against one reference
-    (tests/test_pallas_deposit.py:173-195).  CUDA tensors launch
-    csrc/tsc_deposit.cu (K1) or csrc/tsc_deposit_stream.cu (K1s)."""
+    every `stream` and `impl`: the JAX package's tests hold both TPU bodies
+    against one reference (tests/test_pallas_deposit.py:173-195).  CUDA
+    tensors launch csrc/tsc_deposit_tiled.cu; `impl="push"` and
+    `impl="pull"` launch the witnesses csrc/tsc_deposit.cu and
+    csrc/tsc_deposit_stream.cu instead (the same bits, for checks and
+    timings only)."""
+    if impl not in _DEPOSIT_IMPLS:
+        raise ValueError(f"impl must be one of {_DEPOSIT_IMPLS}, got {impl!r}")
     hx, hy = _halo_pair(halo)
     hx = _round_halo(hx, block[0])
     _check_positions(pos, g, hx, hy, block)
-    if stream is None:
-        stream = stream_selected(g, (hx, hy), block, weights is not None)
     if pos.device.type == "cpu":
         return tsc_deposit_window_plain(pos, g, (hx, hy), block, weights)
     if pos.device.type != "cuda":
@@ -393,12 +477,34 @@ def tsc_deposit_window(pos, g: GridSpec, halo=4, block=(8, 8), weights=None,
     _check_tensor("pos", pos, pos.shape, pos.device)
     if weights is not None:
         _check_tensor("weights", weights, batch + g.shape, pos.device)
-    if stream:
+    if impl == "push":
+        return tsc_deposit_window_push(pos, g, (hx, hy), block, weights)
+    if impl == "pull":
         return tsc_deposit_window_stream(pos, g, (hx, hy), block, weights)
     from barcode_tpu_torch import cuda_build
 
-    lib, _ = cuda_build.load()
+    lib, status, rho = _deposit_tiled(pos, weights, g, g.N1, g.N1, 0, block,
+                                      hx, hy, slab=False)
+    cuda_build.check(lib, status, "tsc_deposit_window")
+    tsc_deposit_window.launches += 1
+    return rho
+
+
+tsc_deposit_window.launches = 0
+
+
+def tsc_deposit_window_push(pos, g: GridSpec, halo, block: tuple,
+                            weights=None):
+    """Witness launcher: `tsc_deposit_window(..., impl="push")` on CUDA
+    tensors (csrc/tsc_deposit.cu, one thread per particle, 27 global
+    atomics each).  `halo` is the (hx, hy) pair with hx already rounded;
+    inputs are checked by the caller."""
+    from barcode_tpu_torch import cuda_build
+
+    hx, hy = halo
+    batch = tuple(pos.shape[:-4])
     C = batch[0] if batch else 1
+    lib, _ = cuda_build.load()
     scale = _fixed_point_scale(weights, g.N, pos.device)
     acc = torch.zeros(batch + g.shape, dtype=torch.int64, device=pos.device)
     bad = torch.zeros(C, dtype=torch.int32, device=pos.device)
@@ -409,24 +515,26 @@ def tsc_deposit_window(pos, g: GridSpec, halo=4, block=(8, 8), weights=None,
             pos.data_ptr(), weights.data_ptr() if weights is not None else None,
             scale.data_ptr(), acc.data_ptr(), bad.data_ptr(), rho.data_ptr(),
             *_launch_args(g, C), block[0], block[1], hx, hy, stream_ptr)
-    cuda_build.check(lib, status, "tsc_deposit_window")
-    tsc_deposit_window.launches += 1
+    cuda_build.check(lib, status, "tsc_deposit_window_push")
+    tsc_deposit_window_push.launches += 1
     return rho
 
 
-tsc_deposit_window.launches = 0
+tsc_deposit_window_push.launches = 0
 
-# K1s's accumulator tile: BX*BY*TZ int64 cells, 64 KB of shared memory where
-# a cluster of at most STREAM_CLUSTER_MAX tiles covers the z column (TZ = 32
-# z cells for the (16, 16) block at N3 = 256), at most 128 KB otherwise
+# The pull witness's accumulator tile: BX*BY*TZ int64 cells, 64 KB of shared
+# memory where a cluster of at most STREAM_CLUSTER_MAX tiles covers the z
+# column (TZ = 32 z cells for the (16, 16) block at N3 = 256), at most 128
+# KB otherwise
 STREAM_TILE_CELLS = 8192
 STREAM_TILE_CELLS_MAX = 16384
 STREAM_CLUSTER_MAX = 8
 
 
 def stream_tile_z(g: GridSpec, block: tuple) -> int:
-    """K1s's z extent per output tile: the z tiles of one (BX, BY) column
-    form one thread-block cluster of at most STREAM_CLUSTER_MAX blocks."""
+    """The pull witness's z extent per output tile: the z tiles of one
+    (BX, BY) column form one thread-block cluster of at most
+    STREAM_CLUSTER_MAX blocks."""
     nxy = block[0] * block[1]
     tz = max(-(-g.N3 // STREAM_CLUSTER_MAX),
              min(g.N3, max(1, STREAM_TILE_CELLS // nxy)))
@@ -438,9 +546,10 @@ def stream_tile_z(g: GridSpec, block: tuple) -> int:
 
 def tsc_deposit_window_stream(pos, g: GridSpec, halo, block: tuple,
                               weights=None):
-    """K1s launcher: `tsc_deposit_window(..., stream=True)` on CUDA tensors
-    (csrc/tsc_deposit_stream.cu).  `halo` is the (hx, hy) pair with hx
-    already rounded; inputs are checked by the caller."""
+    """Witness launcher: `tsc_deposit_window(..., impl="pull")` on CUDA
+    tensors (csrc/tsc_deposit_stream.cu, the streamed-window K1s).  `halo`
+    is the (hx, hy) pair with hx already rounded; inputs are checked by the
+    caller."""
     from barcode_tpu_torch import cuda_build
 
     hx, hy = halo
@@ -658,15 +767,23 @@ def _slab_launch_args(g: GridSpec, C: int, n1_loc: int, dev: int):
     return (C, n1_loc, g.N1, g.N2, g.N3, d1, d2, d3, dev * n1_loc)
 
 
+_SLAB_IMPLS = ("tiled", "push")
+
+
 def tsc_deposit_slab(pos, g: GridSpec, n1_loc: int, dev: int, halo: int,
-                     block=(8, 8), weights=None):
+                     block=(8, 8), weights=None, impl="tiled"):
     """K3: TSC deposit of slab `dev`'s particles into its extended buffer
     (TPU: pallas_deposit.tsc_deposit_pallas_slab, both of its bodies).
 
     pos is (3, n1_loc, N2, N3) or (C, 3, n1_loc, N2, N3) for C chains (one
     launch covers all); weights batch + (n1_loc, N2, N3).  Returns batch +
-    (n1_loc + 2*halo, N2, N3) float32.  CPU tensors take the plain version;
-    CUDA tensors launch csrc/tsc_deposit_slab.cu."""
+    (n1_loc + 2*halo, N2, N3) float32.  CPU tensors take the plain version
+    for every `impl`; CUDA tensors launch csrc/tsc_deposit_tiled.cu in its
+    slab geometry, or with `impl="push"` the witness
+    csrc/tsc_deposit_slab.cu (the same bits, for checks and timings
+    only)."""
+    if impl not in _SLAB_IMPLS:
+        raise ValueError(f"impl must be one of {_SLAB_IMPLS}, got {impl!r}")
     block = tuple(block)
     _check_slab(pos, g, n1_loc, dev, halo, block, n1_loc + 2 * halo)
     if pos.device.type == "cpu":
@@ -674,13 +791,35 @@ def tsc_deposit_slab(pos, g: GridSpec, n1_loc: int, dev: int, halo: int,
                                       weights)
     if pos.device.type != "cuda":
         raise ValueError(f"unsupported device {pos.device}")
-    from barcode_tpu_torch import cuda_build
-
     batch = tuple(pos.shape[:-4])
     _check_tensor("pos", pos, pos.shape, pos.device)
     if weights is not None:
         _check_tensor("weights", weights, batch + (n1_loc, g.N2, g.N3),
                       pos.device)
+    if impl == "push":
+        return tsc_deposit_slab_push(pos, g, n1_loc, dev, halo, block,
+                                     weights)
+    from barcode_tpu_torch import cuda_build
+
+    lib, status, out = _deposit_tiled(pos, weights, g, n1_loc,
+                                      n1_loc + 2 * halo, dev * n1_loc, block,
+                                      halo, halo, slab=True)
+    cuda_build.check(lib, status, "tsc_deposit_slab")
+    tsc_deposit_slab.launches += 1
+    return out
+
+
+tsc_deposit_slab.launches = 0
+
+
+def tsc_deposit_slab_push(pos, g: GridSpec, n1_loc: int, dev: int,
+                          halo: int, block: tuple, weights=None):
+    """Witness launcher: `tsc_deposit_slab(..., impl="push")` on CUDA
+    tensors (csrc/tsc_deposit_slab.cu, one thread per particle, 27 global
+    atomics each); inputs are checked by the caller."""
+    from barcode_tpu_torch import cuda_build
+
+    batch = tuple(pos.shape[:-4])
     lib, _ = cuda_build.load()
     C = batch[0] if batch else 1
     ext = batch + (n1_loc + 2 * halo, g.N2, g.N3)
@@ -695,12 +834,12 @@ def tsc_deposit_slab(pos, g: GridSpec, n1_loc: int, dev: int, halo: int,
             scale.data_ptr(), acc.data_ptr(), bad.data_ptr(), out.data_ptr(),
             *_slab_launch_args(g, C, n1_loc, dev), block[0], block[1], halo,
             stream)
-    cuda_build.check(lib, status, "tsc_deposit_slab")
-    tsc_deposit_slab.launches += 1
+    cuda_build.check(lib, status, "tsc_deposit_slab_push")
+    tsc_deposit_slab_push.launches += 1
     return out
 
 
-tsc_deposit_slab.launches = 0
+tsc_deposit_slab_push.launches = 0
 
 
 def tsc_gather_grads_slab(ext_field, pos, g: GridSpec, n1_loc: int, dev: int,

@@ -3,7 +3,14 @@
 
     python3 chip_smoke.py
 
-Drives the port's three paths and checks the CUDA kernels on the way:
+Drives the port's three paths and checks the CUDA kernels on the way.
+Every windowed deposit on the card runs the shared-memory kernel
+csrc/tsc_deposit_tiled.cu (K1 dense, K3 slab); the earlier deposit kernels
+(push: csrc/tsc_deposit.cu, csrc/tsc_deposit_slab.cu; pull, the streamed
+K1s: csrc/tsc_deposit_stream.cu) stay built as witnesses, reached only with
+`impl=`: each check holds the tiled kernel against them bit for bit, the
+timing phase times them beside it, and their launch counters must read 0
+on every path.  The paths:
   * the 128^3 headline configuration (bench.py:60-155: ALPT +
     plane-parallel RSD, sph_ft, Gaussian likelihood, mass type 1,
     N_eps_fac=8, the kernel deposit with the halo-tail split) through
@@ -17,35 +24,41 @@ Drives the port's three paths and checks the CUDA kernels on the way:
 
 Phases:
   1. device       card name, count and `nvidia-smi` name/power limit
-  2. build        nvcc build of csrc/*.cu (sm_90a) and its ptxas report
+  2. build        nvcc build of csrc/*.cu (sm_90a) and its ptxas report;
+                  the shared-memory atomics in the tiled kernel's SASS,
+                  whether a 64-bit shared-memory add is native on sm_90a,
+                  and the tiled kernel's resident blocks per SM
   3. determinism  the windowless and tail-split deposits (fixed point) give
                   the same bits on every call at 128^3
   4. kernels      K1 (deposit) and K2 (gather) against their plain PyTorch
                   versions at 32^3 with forced contract violators and at the
-                  headline 128^3 shapes with 2 chains; K1 is deterministic
+                  headline 128^3 shapes with 2 chains; K1 equals the push
+                  and pull witnesses and itself, bit for bit
   5. psi          psi and grad psi at 128^3 on the card (kernels) and on the
                   CPU (plain versions) from the same delta
   6. path         the 128^3 Runner session, with the kernel launch counters
                   set to 0 just before it and checked against the expected
                   count after (K1 also runs in the deltaEUL/deltaRSS dumps)
-  7. kernels256   K1s (the streamed-window deposit, which the stream gate
-                  selects at 256^3) against its plain version, against K1
-                  and against itself at the 256^3 shapes, and with forced
+  7. kernels256   K1 at the 256^3 shapes (where the JAX package's gate
+                  streams: K1s on the TPU) against its plain version, the
+                  push and pull witnesses and itself, and with forced
                   violators at 32^3 where the window is wider than the grid;
                   K2 against its plain version at the 256^3 shapes
   8. psi256       psi and grad psi at 256^3 (one chain), card against CPU
   9. cli256       three command-line calls at 256^3 (session; --resume with
                   --profile; restart from deltaLAG_2 + the performance log),
                   each with the launch counters zeroed before it and checked
-                  after; the profile's top kernels by device time
+                  after; the profile's top kernels by device time; K1 against
+                  the witnesses at the chains' positions after the calls
  10. spectrum_determinism
                   measure_spectrum at 128^3 gives the same bits in 5 calls
                   (the float index_add_ form it replaced, measured beside);
                   mass types 0, 2, 3 and 5 built on the card
  11. slab_kernels K3 and K4 against their plain versions at 32^3 (violators,
                   windows wider than the slab) and at the 256^3 one-rank
-                  shapes; K3 against itself bit for bit; per-slab K3/K4 at
-                  128^3 for 2 and 4 slabs on one card against K1/K2
+                  shapes; K3 against its push witness and itself bit for
+                  bit; per-slab K3/K4 at 128^3 for 2 and 4 slabs on one card
+                  against K1/K2
  12. sharded_psi256
                   sharded psi and grad psi at 256^3, one rank over NCCL,
                   against the dense psi on the card
@@ -53,7 +66,8 @@ Phases:
                   three `--sharded` command-line calls at 256^3 (session;
                   --resume; restart from deltaLAG_2 without
                   checkpoint_sharded.npz), launch counters checked
- 14. timing       CUDA-event times of each kernel at its path's shapes
+ 14. timing       CUDA-event times of each kernel at its path's shapes, the
+                  witnesses beside the tiled kernel on the same inputs
 
 Every phase raises on failure, so any failure exits non-zero.  It needs a
 card: without one (or without the package beside it) it exits non-zero
@@ -108,9 +122,6 @@ F32_FLOPS_PER_S = 67e12    # H100 SXM, float32 outside the tensor cores
 # K2: 3 axes x (base/frac ~5 + 3 weights + 3 derivatives ~14) + 27 taps x
 #     2 FMAs (4 flops) + 9 xy pairs x 4 channels x 3 flops + 3 divides = 276
 OPS_K1, OPS_K2 = 120, 276
-# K1s does K1's arithmetic per particle (the bound counts the work the
-# function needs, not the window re-reads of this design)
-OPS_K1S = OPS_K1
 # K3 and K4 do K1's and K2's arithmetic per particle (the slab geometry only
 # moves integer offsets)
 OPS_K3, OPS_K4 = OPS_K1, OPS_K2
@@ -221,18 +232,38 @@ def check_gather(cot, pos, g, halo, block):
     return errs
 
 
+def check_witnesses(label, g, pos, halo, block, weights):
+    """K1 (the tiled kernel) against its plain version (tolerance), and
+    against the push and pull witnesses and itself (bit for bit); returns
+    its error."""
+    out = tk.tsc_deposit_window(pos, g, halo, block, weights=weights)
+    again = tk.tsc_deposit_window(pos, g, halo, block, weights=weights)
+    push = tk.tsc_deposit_window(pos, g, halo, block, weights=weights,
+                                 impl="push")
+    pull = tk.tsc_deposit_window(pos, g, halo, block, weights=weights,
+                                 impl="pull")
+    sync(pos.device)
+    ref = tk.tsc_deposit_window_plain(pos, g, halo, block, weights=weights)
+    err = compare(f"K1 {label} vs plain", out, ref, TOL_DEP_REL)
+    same = {"push": torch.equal(out, push), "pull": torch.equal(out, pull),
+            "itself": torch.equal(out, again)}
+    print(f"  K1 {label}: == " + ", == ".join(f"{k} {v}"
+                                             for k, v in same.items()))
+    if not all(same.values()):
+        raise RuntimeError(f"K1 {label} differs from a witness or itself")
+    return err
+
+
 def check_kernels(label, g, pos, halo, block_dep, block, weights, cot):
-    """K1 (unweighted + weighted) and K2 (with and without the value)
-    against the plain versions; returns the errors of the main-path calls."""
+    """K1 (unweighted + weighted; against the plain version, the witnesses
+    and itself) and K2 (with and without the value) against the plain
+    versions; returns the errors of the main-path calls."""
     print(f"  [{label}] grid {g.shape}, chains {pos.shape[0]}, halo {halo}, "
           f"K1 block {block_dep}, K2 block {block}, violators "
           f"{tk.deposit_violations(pos, g, halo).tolist()}", flush=True)
-    errs = {}
-    for w, tag in ((None, "unweighted"), (weights, "weighted")):
-        out = tk.tsc_deposit_window(pos, g, halo, block_dep, weights=w)
-        sync(pos.device)
-        ref = tk.tsc_deposit_window_plain(pos, g, halo, block_dep, weights=w)
-        errs[f"K1 {tag}"] = compare(f"K1 {tag}", out, ref, TOL_DEP_REL)
+    errs = {f"K1 {tag}": check_witnesses(f"{label} {tag}", g, pos, halo,
+                                         block_dep, w)
+            for w, tag in ((None, "unweighted"), (weights, "weighted"))}
     errs.update(check_gather(cot, pos, g, halo, block))
     return errs
 
@@ -337,12 +368,6 @@ def phase_kernels(dev, conf: RunConfig, tmp: str):
     cot = torch.randn((N_CHAINS,) + g.shape, generator=gen, device=dev)
     errs = check_kernels(f"{g.N1}^3 headline", g, pos, fc.pallas_halo,
                          block_dep, block, ok, cot)
-    rho1 = tk.tsc_deposit_window(pos, g, fc.pallas_halo, block_dep, weights=ok)
-    rho2 = tk.tsc_deposit_window(pos, g, fc.pallas_halo, block_dep, weights=ok)
-    spread = (rho1 - rho2).abs().max().item()
-    print(f"  K1 run-to-run max|diff| {spread:.3e} (deterministic: 0 expected)")
-    if spread != 0.0:
-        raise RuntimeError("K1 is not deterministic")
     print(f"  tail split: halo {fc.pallas_halo}, tail_k {fc.pallas_tail_k}, "
           f"violators per chain {(ok == 0).sum((1, 2, 3)).tolist()}")
     inputs = dict(g=g, pos=pos, ok=ok, cot=cot, halo=fc.pallas_halo,
@@ -380,8 +405,7 @@ def phase_path(dev, conf: RunConfig, tmp: str):
     sync(dev)
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats()
-    tk.tsc_deposit_window.launches = 0
-    tk.tsc_gather_grads_window.launches = 0
+    zero_launches()
     t_setup = time.perf_counter()
     runner = Runner(conf, out_dir=tmp, device=dev)
     runner.attempt_batch = ATTEMPT_BATCH
@@ -392,8 +416,7 @@ def phase_path(dev, conf: RunConfig, tmp: str):
                         nan_check=True)
     sync(dev)
     t_end = time.perf_counter()
-    launches = {"K1": tk.tsc_deposit_window.launches,
-                "K2": tk.tsc_gather_grads_window.launches}
+    launches = read_launches()
     hc = runner.conf.hmc
     attempts = int(states.count_attempts[0])
     grads_per_step = 2 if hc.integrator == "minimal_norm_2" else 1
@@ -405,9 +428,10 @@ def phase_path(dev, conf: RunConfig, tmp: str):
                    "K2": grads_per_step * hc.N_eps_fac}
     # kernels launch only where they are on the CUDA device
     on_card = dev.type == "cuda"
-    expected = {"K1": 1 + grads_per_step * steps + n_dumps,
-                "K2": 1 + grads_per_step * steps} if on_card else \
-        {"K1": 0, "K2": 0}
+    expected = dict.fromkeys(KERNEL_LAUNCHERS, 0)
+    if on_card:
+        expected.update(K1=1 + grads_per_step * steps + n_dumps,
+                        K2=1 + grads_per_step * steps)
     s = runner.metrics.summary()
     finite = bool(torch.isfinite(states.psi).all())
     print(f"  halo {runner.conf.model.forward.pallas_halo}, attempts "
@@ -428,7 +452,8 @@ def phase_path(dev, conf: RunConfig, tmp: str):
     runner.close()
     if not finite:
         raise RuntimeError("non-finite psi after the run")
-    if launches != expected or (on_card and 0 in launches.values()):
+    if launches != expected or (on_card and 0 in (launches["K1"],
+                                                  launches["K2"])):
         raise RuntimeError(f"kernel launches {launches} != {expected}")
     return launches, per_attempt
 
@@ -465,31 +490,13 @@ def write_input_par(tmp: str) -> Path:
     return path
 
 
-def check_stream(label, g, pos, halo, block, weights):
-    """K1s against the plain version (tolerance), against K1 and against
-    itself (bit for bit); returns its error."""
-    out = tk.tsc_deposit_window(pos, g, halo, block, weights=weights,
-                                stream=True)
-    again = tk.tsc_deposit_window(pos, g, halo, block, weights=weights,
-                                  stream=True)
-    k1 = tk.tsc_deposit_window(pos, g, halo, block, weights=weights,
-                               stream=False)
-    sync(pos.device)
-    ref = tk.tsc_deposit_window_plain(pos, g, halo, block, weights=weights)
-    err = compare(f"K1s {label} vs plain", out, ref, TOL_DEP_REL)
-    same_k1, same = torch.equal(out, k1), torch.equal(out, again)
-    print(f"  K1s {label}: == K1 {same_k1}, == itself {same}")
-    if not (same_k1 and same):
-        raise RuntimeError(f"K1s {label} differs from K1 or from itself")
-    return err
-
-
 def phase_kernels256(dev, conf: RunConfig, tmp: str):
-    """K1s at the 256^3 configuration's shapes: its displaced positions
+    """K1 at the 256^3 configuration's shapes: its displaced positions
     (the mock truth and half of it, through the forward model), its
-    resolved halo and block, with and without the tail weights; K2 on the
-    same positions at the path's gather block; then K1s at 32^3 with block
-    (16, 16), hx 12 and forced violators (WX = 40 > 32)."""
+    resolved halo and block, with and without the tail weights, against
+    its plain version, the witnesses and itself; K2 on the same positions
+    at the path's gather block; then K1 at 32^3 with block (16, 16), hx 12
+    and forced violators (WX = 40 > 32)."""
     runner = Runner(conf, out_dir=tmp, device=dev)
     runner.setup(n_chains=N_CHAINS)
     g, gp, fc = runner.g, runner.gp, runner.conf.model.forward
@@ -507,11 +514,14 @@ def phase_kernels256(dev, conf: RunConfig, tmp: str):
           f"{(ok == 0).sum((1, 2, 3)).tolist()}; working set weighted "
           f"{tk.deposit_working_set_bytes(g, eff, block_dep, True)} B, "
           f"unweighted {tk.deposit_working_set_bytes(g, eff, block_dep)} B "
-          f"against {tk.DEP_VMEM_BUDGET} B: stream chosen weighted "
-          f"{chosen[True]}, unweighted {chosen[False]}")
+          f"against {tk.DEP_VMEM_BUDGET} B: the JAX package streams (K1s) "
+          f"weighted {chosen[True]}, unweighted {chosen[False]}; the card "
+          f"runs K1 either way")
     if not chosen[True]:
-        raise RuntimeError("the stream gate did not choose K1s at 256^3")
-    errs = {tag: check_stream(f"{g.N1}^3 {tag}", g, pos, halo, block_dep, w)
+        raise RuntimeError("the stream gate's parity: the JAX package "
+                           "streams every weighted deposit at 256^3")
+    errs = {tag: check_witnesses(f"{g.N1}^3 {tag}", g, pos, halo, block_dep,
+                                 w)
             for tag, w in (("unweighted", None), ("weighted", ok))}
     block = tuple(fc.pallas_block)
     cot = torch.randn((N_CHAINS,) + g.shape, device=dev,
@@ -527,7 +537,8 @@ def phase_kernels256(dev, conf: RunConfig, tmp: str):
           f"{16 + 2 * tk._round_halo(12, 16)} > N 32, violators "
           f"{tk.deposit_violations(pos32, g32, 3).tolist()} (of halo 3)")
     for tag, w in (("unweighted", None), ("weighted", w32)):
-        check_stream(f"32^3 wide window {tag}", g32, pos32, 12, (16, 16), w)
+        check_witnesses(f"32^3 wide window {tag}", g32, pos32, 12, (16, 16),
+                        w)
     inputs = dict(g=g, pos=pos, ok=ok, cot=cot, halo=halo, block=block,
                   block_dep=block_dep)
     return runner, delta, inputs, errs
@@ -548,7 +559,9 @@ def _sample_dumps(out: Path) -> dict:
 
 
 def top_kernels(trace_path: Path, n: int = 10):
-    """Device time by CUDA kernel name in a torch.profiler Chrome trace."""
+    """Device time by CUDA kernel name in a torch.profiler Chrome trace:
+    the top n, then the port's own kernels (csrc/, named tsc_*) below
+    them."""
     data = json.loads(trace_path.read_text())
     events = data["traceEvents"] if isinstance(data, dict) else data
     kern = [e for e in events
@@ -568,15 +581,22 @@ def top_kernels(trace_path: Path, n: int = 10):
     print(f"  profile: {len(kern)} kernel launches, {busy / 1e3:.1f} ms of "
           f"kernel time over a {(t1 - t0) / 1e3:.1f} ms span (device busy "
           f"{busy / (t1 - t0):.3f}); top {n} by device time:")
-    for name, us in total.most_common(n):
+    top = total.most_common(n)
+    # the port's own kernels, in the top n or not
+    top += [(name, us) for name, us in total.most_common()
+            if "tsc_" in name and (name, us) not in top]
+    for name, us in top:
         print(f"    {us / 1e3:10.2f} ms {us / busy:6.1%} {count[name]:6d}x  "
               f"{name[:110]}")
 
 
 KERNEL_LAUNCHERS = {"K1": tk.tsc_deposit_window,
-                    "K1s": tk.tsc_deposit_window_stream,
                     "K2": tk.tsc_gather_grads_window,
-                    "K3": tk.tsc_deposit_slab, "K4": tk.tsc_gather_grads_slab}
+                    "K3": tk.tsc_deposit_slab, "K4": tk.tsc_gather_grads_slab,
+                    # the witnesses: 0 on every path
+                    "K1 push": tk.tsc_deposit_window_push,
+                    "K1s pull": tk.tsc_deposit_window_stream,
+                    "K3 push": tk.tsc_deposit_slab_push}
 
 
 def zero_launches():
@@ -588,14 +608,31 @@ def read_launches():
     return {k: f.launches for k, f in KERNEL_LAUNCHERS.items()}
 
 
-def phase_cli256(dev, tmp: str, sharded: bool = False, chains: int = 1):
+def path_inputs(runner: Runner) -> dict:
+    """The deposit's inputs at a dense runner's chain positions: the
+    forward model's displaced positions of its chains' delta, its halo and
+    deposit block, and the tail split's weights (1 inside the contract)."""
+    g, gp, fc = runner.g, runner.gp, runner.conf.model.forward
+    with torch.no_grad():
+        pos = displaced_positions(runner.states.delta, g, fc, gp).contiguous()
+    hx, hy = tk._halo_pair(fc.pallas_halo)
+    ok = (assign._halo_excess(pos, g, hx, hy) <= 0.0).float()
+    return dict(g=g, pos=pos, ok=ok, halo=fc.pallas_halo,
+                block_dep=assign.auto_block_dep(g, fc.pallas_halo,
+                                                tuple(fc.pallas_block)))
+
+
+def phase_cli256(dev, tmp: str, sharded: bool = False, chains: int = 1,
+                 keep: dict | None = None):
     """Three command-line calls at 256^3: a session; --resume with
     --profile; a restart from deltaLAG_2 + the performance log after the
     checkpoint is removed.  With `sharded` the calls add --sharded and
     --chains `chains`: a (chains, world / chains) layout of the process
     group (one rank over NCCL when run alone), deposits through K3/K4.
     Launch counters are zeroed before each call and checked after it (on
-    every rank).  Returns the path's launches of each kernel."""
+    every rank).  Returns the path's launches of each kernel.  A dense
+    run fills `keep` with the deposit's inputs at the chains' positions
+    after the last call (its halo, block, positions and tail weights)."""
     rank = torch.distributed.get_rank() \
         if torch.distributed.is_initialized() else 0
     (Path(tmp) / f"par{rank}").mkdir(exist_ok=True)
@@ -663,7 +700,7 @@ def phase_cli256(dev, tmp: str, sharded: bool = False, chains: int = 1):
         if on_card and sharded:
             expected.update(K3=grads, K4=grads)
         elif on_card:
-            expected.update(K1s=grads + n_dep, K2=grads)
+            expected.update(K1=grads + n_dep, K2=grads)
         ck = np.load(out / f"{ckpt}.npz")
         accepted, psi = ck["state_accepted"], ck["state_psi"]
         steps = 8 * attempts
@@ -678,7 +715,7 @@ def phase_cli256(dev, tmp: str, sharded: bool = False, chains: int = 1):
               f"new dumps {new}, rewritten {rewritten}")
         print(f"  {name}: launches {launches}, expected {expected} (init"
               f"{' + restart' if name == 'restart' else ''} + 8 per attempt"
-              f"{'' if sharded else '; K1s also one per dumped field: %d' % n_dep})")
+              f"{'' if sharded else '; K1 also one per dumped field: %d' % n_dep})")
         if launches != expected:
             raise RuntimeError(f"{name}: kernel launches {launches} != "
                                f"{expected}")
@@ -689,6 +726,8 @@ def phase_cli256(dev, tmp: str, sharded: bool = False, chains: int = 1):
             raise RuntimeError(f"resume: accepted did not continue from {last}")
         last = accepted
         total.update(launches)
+        if name == "restart" and keep is not None and not sharded:
+            keep.update(path_inputs(runner))
         if name == "resume" and profile:
             top_kernels(prof / "trace.json")
             shutil.rmtree(prof)
@@ -764,15 +803,19 @@ def fold_slabs(exts, g: GridSpec, n1: int, h: int):
 
 
 def check_slab(label, g, pos, n1, dev, h, weights, cot):
-    """K3 (against its plain version and against itself) and K4 (with and
-    without the value) on one slab; returns the errors."""
+    """K3 (against its plain version, its push witness and itself) and K4
+    (with and without the value) on one slab; returns the errors."""
     out = tk.tsc_deposit_slab(pos, g, n1, dev, h, weights=weights)
     again = tk.tsc_deposit_slab(pos, g, n1, dev, h, weights=weights)
+    push = tk.tsc_deposit_slab(pos, g, n1, dev, h, weights=weights,
+                               impl="push")
     sync(pos.device)
     ref = tk.tsc_deposit_slab_plain(pos, g, n1, dev, h, weights=weights)
     errs = {"K3": compare(f"K3 {label}", out, ref, TOL_DEP_REL)}
-    if not torch.equal(out, again):
-        raise RuntimeError(f"K3 {label} differs from itself")
+    same = {"push": torch.equal(out, push), "itself": torch.equal(out, again)}
+    print(f"  K3 {label}: == push {same['push']}, == itself {same['itself']}")
+    if not all(same.values()):
+        raise RuntimeError(f"K3 {label} differs from its witness or itself")
     for want_value in (False, True):
         o = tk.tsc_gather_grads_slab(cot, pos, g, n1, dev, h,
                                      want_value=want_value)
@@ -889,150 +932,222 @@ def phase_sharded_psi256(dev, runner: Runner):
     if not (psi_err <= TOL_PSI_REL and grad_err <= TOL_GRAD_REL
             and bool(torch.isfinite(grad_s).all())):
         raise RuntimeError("the sharded psi disagrees with the dense psi")
-    expected = {"K3": 2, "K4": 1} if dev.type == "cuda" else \
-        {"K3": 0, "K4": 0}
-    if {k: launches[k] for k in expected} != expected:
+    expected = dict.fromkeys(KERNEL_LAUNCHERS, 0)
+    if dev.type == "cuda":
+        expected.update(K3=2, K4=1)
+    if launches != expected:
         raise RuntimeError(f"sharded psi launches {launches}: expected K3 "
-                           "twice (value, then value and grad) and K4 once")
+                           "twice (value, then value and grad), K4 once and "
+                           "nothing else")
 
 
-def slab_rows(slab, slab_errs, launches_sh):
-    """The timing rows of K3 and K4: at the 256^3 one-rank shapes of the
+TILED_SRC = "barcode_tpu_torch/csrc/tsc_deposit_tiled.cu"
+DEP_REP = "barcode_tpu/forward/pallas_deposit.py:789"
+STREAM_REP = "barcode_tpu/forward/pallas_deposit.py:274"
+SLAB_REP = "barcode_tpu/forward/pallas_deposit.py:675"
+GAT_SRC = "barcode_tpu_torch/csrc/tsc_gather.cu"
+GAT_REP = "barcode_tpu/forward/pallas_deposit.py:530"
+SLAB_GAT_SRC = "barcode_tpu_torch/csrc/tsc_gather_slab.cu"
+SLAB_GAT_REP = "barcode_tpu/forward/pallas_deposit.py:744"
+
+
+def deposit_group(label, g, pos, halo, block, w, err, launches, note):
+    """Timing rows of one dense deposit input: K1 (the tiled kernel) and,
+    on the same inputs, its push and pull witnesses (the same bits, so the
+    same error; 0 launches on every path)."""
+    n_part = pos.shape[0] * g.N
+    n_active = n_part if w is None else int(w.sum())
+    nbytes = n_part * (12 + (0 if w is None else 4) + 4)
+
+    def dep(impl):
+        return lambda: tk.tsc_deposit_window(pos, g, halo, block, weights=w,
+                                             impl=impl)
+    return dict(
+        plain=lambda: tk.tsc_deposit_window_plain(pos, g, halo, block,
+                                                  weights=w),
+        nbytes=nbytes, ops=n_active * OPS_K1, err=err, rows=[
+            (f"K1{label}", f"tsc_deposit_window{label}", dep("tiled"),
+             TILED_SRC, DEP_REP, launches, note),
+            (f"K1{label} push", f"tsc_deposit_window_push{label}",
+             dep("push"), "barcode_tpu_torch/csrc/tsc_deposit.cu", DEP_REP,
+             0, "witness: the earlier K1"),
+            (f"K1s{label} pull", f"tsc_deposit_window_stream{label}",
+             dep("pull"), "barcode_tpu_torch/csrc/tsc_deposit_stream.cu",
+             STREAM_REP, 0, "witness: the earlier K1s")])
+
+
+def slab_group(label, g, pos, n1, h, w, err, launches, note):
+    """Timing rows of one slab deposit input: K3 (the tiled kernel) and its
+    push witness on the same inputs."""
+    n_part = pos.shape[0] * n1 * g.N2 * g.N3
+    n_ext = pos.shape[0] * (n1 + 2 * h) * g.N2 * g.N3
+    n_active = n_part if w is None else int(w.sum())
+
+    def dep(impl):
+        return lambda: tk.tsc_deposit_slab(pos, g, n1, 0, h, weights=w,
+                                           impl=impl)
+    return dict(
+        plain=lambda: tk.tsc_deposit_slab_plain(pos, g, n1, 0, h, weights=w),
+        nbytes=n_part * (12 + (0 if w is None else 4)) + 4 * n_ext,
+        ops=n_active * OPS_K3, err=err, rows=[
+            (f"K3{label}", f"tsc_deposit_slab{label}", dep("tiled"),
+             TILED_SRC, SLAB_REP, launches, note),
+            (f"K3{label} push", f"tsc_deposit_slab_push{label}", dep("push"),
+             "barcode_tpu_torch/csrc/tsc_deposit_slab.cu", SLAB_REP, 0,
+             "witness: the earlier K3")])
+
+
+def gather_group(key, name, fn, plain, nbytes, ops, err, src, rep, launches,
+                 note):
+    return dict(plain=plain, nbytes=nbytes, ops=ops, err=err,
+                rows=[(key, name, fn, src, rep, launches, note)])
+
+
+def slab_groups(slab, slab_errs, launches_sh):
+    """The timing groups of K3 and K4: at the 256^3 one-rank shapes of the
     sharded path (weighted: the tail split zero-weights violators), K3
     also unweighted, and both on slab 0 of 2 slabs at 256^3 (n1_loc = 128,
     1 chain, the same kernel halo), where their error is taken here."""
     g, pos, ok, cot, h = (slab[k] for k in ("g", "pos", "ok", "cot", "halo"))
     n1 = g.N1
-    n_part, n_active = g.N, int(ok.sum())
     n_ext = (n1 + 2 * h) * g.N2 * g.N3
-    src3 = "barcode_tpu_torch/csrc/tsc_deposit_slab.cu"
-    rep3 = "barcode_tpu/forward/pallas_deposit.py:675"
-    src4 = "barcode_tpu_torch/csrc/tsc_gather_slab.cu"
-    rep4 = "barcode_tpu/forward/pallas_deposit.py:744"
     note = f"{N_BIG}^3 --sharded command-line path, 8 per attempt"
-    rows = [
-        ("K3", "tsc_deposit_slab",
-         lambda: tk.tsc_deposit_slab(pos, g, n1, 0, h, weights=ok),
-         lambda: tk.tsc_deposit_slab_plain(pos, g, n1, 0, h, weights=ok),
-         n_part * (12 + 4) + 4 * n_ext, n_active * OPS_K3,
-         slab_errs["K3 weighted"], src3, rep3, launches_sh["K3"], note),
-        ("K3 unweighted", f"tsc_deposit_slab ({N_BIG}^3, unweighted)",
-         lambda: tk.tsc_deposit_slab(pos, g, n1, 0, h),
-         lambda: tk.tsc_deposit_slab_plain(pos, g, n1, 0, h),
-         n_part * 12 + 4 * n_ext, n_part * OPS_K3,
-         slab_errs["K3 unweighted"], src3, rep3, 0,
-         "the path weights every K3 call (tail split)"),
-        ("K4", "tsc_gather_grads_slab",
-         lambda: tk.tsc_gather_grads_slab(cot, pos, g, n1, 0, h,
-                                          want_value=False),
-         lambda: tk.tsc_gather_grads_slab_plain(cot, pos, g, n1, 0, h,
-                                                want_value=False),
-         4 * n_ext + n_part * (12 + 12), n_part * OPS_K4,
-         slab_errs["K4 value=False weighted"], src4, rep4,
-         launches_sh["K4"], note)]
+    groups = [
+        slab_group("", g, pos, n1, h, ok, slab_errs["K3 weighted"],
+                   launches_sh["K3"], note),
+        slab_group(f" ({N_BIG}^3, unweighted)", g, pos, n1, h, None,
+                   slab_errs["K3 unweighted"], 0,
+                   "the path weights every K3 call (tail split)"),
+        gather_group(
+            "K4", "tsc_gather_grads_slab",
+            lambda: tk.tsc_gather_grads_slab(cot, pos, g, n1, 0, h,
+                                             want_value=False),
+            lambda: tk.tsc_gather_grads_slab_plain(cot, pos, g, n1, 0, h,
+                                                   want_value=False),
+            4 * n_ext + g.N * (12 + 12), g.N * OPS_K4,
+            slab_errs["K4 value=False weighted"], SLAB_GAT_SRC, SLAB_GAT_REP,
+            launches_sh["K4"], note)]
     # slab 0 of 2 at 256^3
     m1 = n1 // 2
     p2 = pos[:, :, :m1].contiguous()
     ok2 = ok[:, :m1].contiguous()  # the one-rank mask, a weight like any
     cot2 = cot[:, :m1 + 2 * h].contiguous()
     m_part, m_ext = g.N // 2, (m1 + 2 * h) * g.N2 * g.N3
-    e3 = compare("K3 slab 0 of 2", tk.tsc_deposit_slab(p2, g, m1, 0, h,
-                                                       weights=ok2),
-                 tk.tsc_deposit_slab_plain(p2, g, m1, 0, h, weights=ok2),
-                 TOL_DEP_REL)
-    e4 = compare("K4 slab 0 of 2", tk.tsc_gather_grads_slab(
-        cot2, p2, g, m1, 0, h, want_value=False),
-        tk.tsc_gather_grads_slab_plain(cot2, p2, g, m1, 0, h,
-                                       want_value=False), TOL_GATHER_REL)
+    e3 = check_slab("slab 0 of 2", g, p2, m1, 0, h, ok2, cot2)
     two = "2 slabs: not on the one-rank path"
-    rows += [
-        ("K3@2slabs", f"tsc_deposit_slab ({N_BIG}^3, slab 0 of 2)",
-         lambda: tk.tsc_deposit_slab(p2, g, m1, 0, h, weights=ok2),
-         lambda: tk.tsc_deposit_slab_plain(p2, g, m1, 0, h, weights=ok2),
-         m_part * (12 + 4) + 4 * m_ext, int(ok2.sum()) * OPS_K3, e3, src3,
-         rep3, 0, two),
-        ("K4@2slabs", f"tsc_gather_grads_slab ({N_BIG}^3, slab 0 of 2)",
-         lambda: tk.tsc_gather_grads_slab(cot2, p2, g, m1, 0, h,
-                                          want_value=False),
-         lambda: tk.tsc_gather_grads_slab_plain(cot2, p2, g, m1, 0, h,
-                                                want_value=False),
-         4 * m_ext + m_part * 24, m_part * OPS_K4, e4, src4, rep4, 0, two)]
-    return rows
+    groups += [
+        slab_group(f" ({N_BIG}^3, slab 0 of 2)", g, p2, m1, h, ok2, e3["K3"],
+                   0, two),
+        gather_group(
+            "K4@2slabs", f"tsc_gather_grads_slab ({N_BIG}^3, slab 0 of 2)",
+            lambda: tk.tsc_gather_grads_slab(cot2, p2, g, m1, 0, h,
+                                             want_value=False),
+            lambda: tk.tsc_gather_grads_slab_plain(cot2, p2, g, m1, 0, h,
+                                                   want_value=False),
+            4 * m_ext + m_part * 24, m_part * OPS_K4, e3["K4 value=False"],
+            SLAB_GAT_SRC, SLAB_GAT_REP, 0, two)]
+    return groups
 
 
 def phase_timing(inputs, errs, launches, per_attempt, inputs256, errs256,
-                 launches256, slab, slab_errs, launches_sh):
+                 launches256, path256, slab, slab_errs, launches_sh):
     """CUDA-event times of each kernel and its plain version at its path's
-    shapes (K1, K2 at 128^3; K1s, K2 and, beside them, K1 at 256^3; K3, K4
-    at the 256^3 one-rank and 2-slab shapes), with each kernel's bound;
-    returns the kernels' JSON rows."""
+    shapes, the witnesses beside the tiled deposit on the same inputs: K1,
+    K2 at 128^3; K1 and K2 at 256^3 on the truth's positions, K1 also at
+    the chains' positions after the 256^3 session (`path256`, checked
+    against the witnesses here); K3, K4 at the 256^3 one-rank and 2-slab
+    shapes.  Each kernel's bound; returns the kernels' JSON rows."""
     g, pos, ok, cot = inputs["g"], inputs["pos"], inputs["ok"], inputs["cot"]
     halo, block, block_dep = inputs["halo"], inputs["block"], inputs["block_dep"]
     n_part = pos.shape[0] * g.N
-    n_active = int(ok.sum())  # zero-weight particles skip their taps
     g2, pos2, ok2 = inputs256["g"], inputs256["pos"], inputs256["ok"]
     halo2, block2 = inputs256["halo"], inputs256["block_dep"]
     cot2, gblock2 = inputs256["cot"], inputs256["block"]
-    n_part2, n_active2 = pos2.shape[0] * g2.N, int(ok2.sum())
-    dep_src = "barcode_tpu_torch/csrc/tsc_deposit.cu"
-    dep_rep = "barcode_tpu/forward/pallas_deposit.py:789"
-    gat_src = "barcode_tpu_torch/csrc/tsc_gather.cu"
-    gat_rep = "barcode_tpu/forward/pallas_deposit.py:530"
-    plain2 = lambda: tk.tsc_deposit_window_plain(pos2, g2, halo2, block2,
-                                                 weights=ok2)
-    kernels = (
-        ("K1", "tsc_deposit_window",
-         lambda: tk.tsc_deposit_window(pos, g, halo, block_dep, weights=ok),
-         lambda: tk.tsc_deposit_window_plain(pos, g, halo, block_dep,
-                                             weights=ok),
-         n_part * (12 + 4 + 4), n_active * OPS_K1, errs["K1 weighted"],
-         dep_src, dep_rep, launches["K1"], f"{per_attempt['K1']} per attempt"),
-        ("K2", "tsc_gather_grads_window",
-         lambda: tk.tsc_gather_grads_window(cot, pos, g, halo, block, False),
-         lambda: tk.tsc_gather_grads_window_plain(cot, pos, g, halo, block,
-                                                  False),
-         n_part * (4 + 12 + 12), n_part * OPS_K2, errs["K2 value=False"],
-         gat_src, gat_rep, launches["K2"], f"{per_attempt['K2']} per attempt"),
-        ("K1s", "tsc_deposit_window_stream",
-         lambda: tk.tsc_deposit_window(pos2, g2, halo2, block2, weights=ok2,
-                                       stream=True),
-         plain2, n_part2 * (12 + 4 + 4), n_active2 * OPS_K1S,
-         errs256["weighted"], "barcode_tpu_torch/csrc/tsc_deposit_stream.cu",
-         "barcode_tpu/forward/pallas_deposit.py:274", launches256["K1s"],
-         f"{N_BIG}^3 command-line path, 8 per attempt"),
-        ("K2@256", f"tsc_gather_grads_window ({N_BIG}^3)",
-         lambda: tk.tsc_gather_grads_window(cot2, pos2, g2, halo2, gblock2,
-                                            False),
-         lambda: tk.tsc_gather_grads_window_plain(cot2, pos2, g2, halo2,
-                                                  gblock2, False),
-         n_part2 * (4 + 12 + 12), n_part2 * OPS_K2, errs256["K2 value=False"],
-         gat_src, gat_rep, launches256["K2"],
-         f"{N_BIG}^3 command-line path, 8 per attempt"),
-        ("K1@256", f"tsc_deposit_window ({N_BIG}^3, stream=False)",
-         lambda: tk.tsc_deposit_window(pos2, g2, halo2, block2, weights=ok2,
-                                       stream=False),
-         plain2, n_part2 * (12 + 4 + 4), n_active2 * OPS_K1,
-         errs256["weighted"], dep_src, dep_rep, launches256["K1"],
-         f"{N_BIG}^3 command-line path: K1s runs there"),
-        *slab_rows(slab, slab_errs, launches_sh))
+    n_part2 = pos2.shape[0] * g2.N
+    gp, posp, okp = path256["g"], path256["pos"], path256["ok"]
+    halop, blockp = path256["halo"], path256["block_dep"]
+    print(f"  {gp.N1}^3 chains after the session: violators per chain "
+          f"{(okp == 0).sum((1, 2, 3)).tolist()}, halo {halop}, block "
+          f"{blockp}")
+    errp = check_witnesses(f"{gp.N1}^3 path positions weighted", gp, posp,
+                           halop, blockp, okp)
+    note256 = f"{N_BIG}^3 command-line path, 8 per attempt"
+    groups = [
+        deposit_group("", g, pos, halo, block_dep, ok, errs["K1 weighted"],
+                      launches["K1"], f"{per_attempt['K1']} per attempt"),
+        gather_group(
+            "K2", "tsc_gather_grads_window",
+            lambda: tk.tsc_gather_grads_window(cot, pos, g, halo, block,
+                                               False),
+            lambda: tk.tsc_gather_grads_window_plain(cot, pos, g, halo, block,
+                                                     False),
+            n_part * (4 + 12 + 12), n_part * OPS_K2, errs["K2 value=False"],
+            GAT_SRC, GAT_REP, launches["K2"],
+            f"{per_attempt['K2']} per attempt"),
+        deposit_group(f" ({N_BIG}^3)", g2, pos2, halo2, block2, ok2,
+                      errs256["weighted"], launches256["K1"],
+                      note256 + "; the truth's positions"),
+        deposit_group(f" ({N_BIG}^3, path positions)", gp, posp, halop,
+                      blockp, okp, errp, launches256["K1"],
+                      note256 + "; the chains after the session"),
+        gather_group(
+            "K2@256", f"tsc_gather_grads_window ({N_BIG}^3)",
+            lambda: tk.tsc_gather_grads_window(cot2, pos2, g2, halo2, gblock2,
+                                               False),
+            lambda: tk.tsc_gather_grads_window_plain(cot2, pos2, g2, halo2,
+                                                     gblock2, False),
+            n_part2 * (4 + 12 + 12), n_part2 * OPS_K2,
+            errs256["K2 value=False"], GAT_SRC, GAT_REP, launches256["K2"],
+            note256),
+        *slab_groups(slab, slab_errs, launches_sh)]
     rows = []
-    for key, name, fn, plain, nbytes, ops, err, src, rep, n_launch, note in \
-            kernels:
-        ms = cuda_ms(fn, 20)
-        plain_ms = cuda_ms(plain, 3, warmup=1)
-        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = ops / F32_FLOPS_PER_S * 1e3
-        rows.append({
-            "name": name, "route": "cuda", "source": src, "replaces": rep,
-            "launches": n_launch, "max_abs_err": err, "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": None})
-        print(f"  {key} {name}: {ms:.4f} ms (plain {plain_ms:.3f} ms), bound "
-              f"{max(t_bytes, t_ops) * 1e3:.2f} us ({nbytes / 1e6:.1f} MB, "
-              f"{ops / 1e9:.3f} GFLOP), {n_launch} launches on the path "
-              f"({note})")
+    for grp in groups:
+        plain_ms = cuda_ms(grp["plain"], 3, warmup=1)
+        t_bytes = grp["nbytes"] / HBM_BYTES_PER_S * 1e3
+        t_ops = grp["ops"] / F32_FLOPS_PER_S * 1e3
+        bound = max(t_bytes, t_ops)
+        for key, name, fn, src, rep, n_launch, note in grp["rows"]:
+            ms = cuda_ms(fn, 20)
+            rows.append({
+                "name": name, "route": "cuda", "source": src, "replaces": rep,
+                "launches": n_launch, "max_abs_err": grp["err"], "ms": ms,
+                "plain_ms": plain_ms, "bound_ms": bound,
+                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                "library_ms": None})
+            print(f"  {key} {name}: {ms:.4f} ms (plain {plain_ms:.3f} ms), "
+                  f"bound {bound * 1e3:.2f} us ({grp['nbytes'] / 1e6:.1f} MB, "
+                  f"{grp['ops'] / 1e9:.3f} GFLOP), {n_launch} launches on "
+                  f"the path ({note})")
     return rows
+
+
+def phase_build_checks(info):
+    """The tiled kernel's shared-memory atomics in its SASS, what a 64-bit
+    shared-memory add compiles to on sm_90a, and the tiled kernel's
+    resident blocks per SM (the plan's two, so that the box cap holds)."""
+    lib, _ = cuda_build.load()
+    sass = cuda_build.sass(info.path, "tsc_deposit_tiled_kernel")
+    ops = collections.Counter(tok for line in sass.splitlines()
+                              for tok in line.split()
+                              if tok.startswith("ATOMS"))
+    add64 = cuda_build.shared_add64_opcodes()
+    native = bool(add64) and not any("CAS" in op for op in add64)
+    print(f"  tiled kernel: shared-memory atomics in its SASS {dict(ops)}")
+    print(f"  a 64-bit atomicAdd into shared memory compiles to {add64} on "
+          f"sm_90a: native {native} (the tiled kernel adds two native 32-bit "
+          f"words instead)")
+    plan = tk.tiled_plan(N_BIG, N_BIG, N_BIG, N_CHAINS)
+    blocks = {geom: lib.tsc_deposit_tiled_blocks_per_sm(plan.box_cells, slab)
+              for geom, slab in (("dense", 0), ("slab", 1))}
+    print(f"  tiled kernel: {plan.threads} threads, box {plan.box_cells} "
+          f"cells ({plan.smem_bytes} B), resident blocks per SM {blocks} "
+          f"(planned {plan.blocks_per_sm})")
+    if not ops or any("CAS" in op for op in ops):
+        raise RuntimeError(f"the tiled kernel's shared atomics are "
+                           f"{dict(ops)}")
+    if any(n != plan.blocks_per_sm for n in blocks.values()):
+        raise RuntimeError(f"the tiled kernel fits {blocks} blocks per SM, "
+                           f"not {plan.blocks_per_sm}")
 
 
 def rank_worker(tmp: str, device_type: str):
@@ -1121,6 +1236,7 @@ def main(argv=None):
             if any(k in line for k in ("Compiling", "registers", "spill",
                                        "smem")):
                 print("  ptxas:", line.strip())
+        phase_build_checks(info)
         clock.done()
 
         if ranks > 1:
@@ -1187,7 +1303,8 @@ def main(argv=None):
 
         clock.start("cli256")
         tmp_dirs.append(tempfile.mkdtemp(prefix="chip_smoke_"))
-        launches256 = phase_cli256(dev, tmp_dirs[-1])
+        path256 = {}
+        launches256 = phase_cli256(dev, tmp_dirs[-1], keep=path256)
         clock.done()
 
         clock.start("sharded_cli256")
@@ -1197,7 +1314,7 @@ def main(argv=None):
 
         clock.start("timing")
         rows = phase_timing(inputs, errs, launches, per_attempt, inputs256,
-                            errs256, launches256, slab, slab_errs,
+                            errs256, launches256, path256, slab, slab_errs,
                             launches_sh)
         clock.done()
 

@@ -10,7 +10,9 @@ Kernel tolerances: 2e-6 * max(1, max|ref|) — K1/K2 sum their taps in
 another order than the plain versions (K1 exactly, in 64-bit fixed point;
 the plain versions in float32); the window decisions are integer
 arithmetic and must agree exactly.  Gradients through the deposit:
-3e-5 * max|grad|.
+3e-5 * max|grad|.  The tiled deposit (csrc/tsc_deposit_tiled.cu) and the
+witnesses it replaced on every path (`impl="push"`, `impl="pull"`) sum the
+same integers, so they are held equal bit for bit (`torch.equal`).
 """
 import numpy as np
 import pytest
@@ -118,16 +120,20 @@ def test_cuda_deposit_function_matches_cpu(cuda, tail_k):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("scale", [1e-7, 1.0, 3e5])
+@pytest.mark.parametrize("scale", [1e-7, 1.0, 3e5, 1e16])
 def test_cuda_deposit_is_deterministic_at_any_weight_scale(cuda, scale):
-    """Fixed-point accumulation: bit-identical repeats, signed weights of
-    any magnitude within tolerance, and NaN for a chain with a non-finite
-    particle (as the float sum would make its psi)."""
+    """Fixed-point accumulation: bit-identical repeats, equal to the push
+    witness, signed weights of any magnitude within tolerance (1e16 makes
+    the fixed-point scale 2^e < 1, the tiled kernel's float64 rounding
+    path), and NaN for a chain with a non-finite particle (as the float sum
+    would make its psi)."""
     pos = positions(6, 50).to(cuda)
     w = scale * torch.randn((2,) + G.shape, device=cuda)
     a = tk.tsc_deposit_window(pos, G, 3, (16, 16), weights=w)
     b = tk.tsc_deposit_window(pos, G, 3, (16, 16), weights=w)
     assert torch.equal(a, b)
+    assert torch.equal(a, tk.tsc_deposit_window(pos, G, 3, (16, 16),
+                                                weights=w, impl="push"))
     ref = tk.tsc_deposit_window_plain(pos, G, 3, (16, 16), weights=w)
     assert (a - ref).abs().max() <= 2e-6 * ref.abs().max()
     w[1, 3, 4, 5] = float("nan")
@@ -137,7 +143,9 @@ def test_cuda_deposit_is_deterministic_at_any_weight_scale(cuda, scale):
 
 STREAM_CASES = {
     # (grid, halo, block, violators): 16^3 and 32^3 with hx 12 have a
-    # window wider than the grid (WX = 32 > 16, 40 > 32)
+    # window wider than the grid (WX = 32 > 16, 40 > 32); the tiled
+    # kernel's 16^3 tiles are ragged at 48^3 and its boxes cross the
+    # periodic seam everywhere
     "violators": (G, 3, (16, 16), 200),
     "halo_pair": (G, (3, 2), (16, 8), 150),
     "wide_window_32": (G, 12, (16, 16), 200),
@@ -153,32 +161,120 @@ STREAM_CASES = {
 @pytest.mark.parametrize("weighted", [False, True])
 @pytest.mark.parametrize("case", sorted(STREAM_CASES))
 def test_cuda_stream_deposit_is_k1(cuda, case, weighted):
-    """K1s (stream=True) within 2e-6 * max of the plain version, equal to
-    K1 (stream=False) bit for bit, and bit-identical from call to call."""
+    """The tiled K1, which serves stream=True and stream=False alike, within
+    2e-6 * max of the plain version, equal bit for bit to the push witness
+    (the earlier K1) and the pull witness (the earlier K1s, the TPU's
+    streamed body), and bit-identical from call to call."""
     g, halo, block, n_viol = STREAM_CASES[case]
     pos = positions(7, n_viol, g=g).to(cuda)
     w = torch.rand((2,) + g.shape, device=cuda) if weighted else None
-    n_s, n_k1 = tk.tsc_deposit_window_stream.launches, tk.tsc_deposit_window.launches
+    n0 = launch_counts()
     out = tk.tsc_deposit_window(pos, g, halo, block, weights=w, stream=True)
-    again = tk.tsc_deposit_window(pos, g, halo, block, weights=w, stream=True)
-    k1 = tk.tsc_deposit_window(pos, g, halo, block, weights=w, stream=False)
+    again = tk.tsc_deposit_window(pos, g, halo, block, weights=w, stream=False)
+    push = tk.tsc_deposit_window(pos, g, halo, block, weights=w, impl="push")
+    pull = tk.tsc_deposit_window(pos, g, halo, block, weights=w, impl="pull")
     torch.cuda.synchronize()
-    assert tk.tsc_deposit_window_stream.launches == n_s + 2
-    assert tk.tsc_deposit_window.launches == n_k1 + 1
-    assert torch.equal(out, again) and torch.equal(out, k1)
+    assert launch_counts() == {k: n0[k] + d for k, d in
+                               (("tiled", 2), ("push", 1), ("pull", 1))}
+    assert torch.equal(out, again)
+    assert torch.equal(out, push) and torch.equal(out, pull)
     assert_close(out, tk.tsc_deposit_window_plain(pos, g, halo, block,
                                                   weights=w))
 
 
+def launch_counts():
+    """The launch counters of the tiled K1 and of its two witnesses."""
+    return {"tiled": tk.tsc_deposit_window.launches,
+            "push": tk.tsc_deposit_window_push.launches,
+            "pull": tk.tsc_deposit_window_stream.launches}
+
+
 @pytest.mark.gpu
-def test_cuda_stream_deposit_marks_a_bad_chain(cuda):
+@pytest.mark.parametrize("impl", ["tiled", "push", "pull"])
+def test_cuda_stream_deposit_marks_a_bad_chain(cuda, impl):
+    """A chain with a non-finite weight or position reads NaN in the tiled
+    kernel as in both witnesses; the other chain keeps its bits."""
     pos = positions(8, 50).to(cuda)
     w = torch.rand((2,) + G.shape, device=cuda)
     w[0, 5, 6, 7] = float("inf")
-    out = tk.tsc_deposit_window(pos, G, 3, (16, 16), weights=w, stream=True)
+    out = tk.tsc_deposit_window(pos, G, 3, (16, 16), weights=w, impl=impl)
     assert torch.isnan(out[0]).all()
     assert torch.equal(out[1], tk.tsc_deposit_window(
-        pos, G, 3, (16, 16), weights=w, stream=False)[1])
+        pos, G, 3, (16, 16), weights=w, impl="push")[1])
+    pos[1, 2, 3, 4, 5] = float("nan")
+    out = tk.tsc_deposit_window(pos, G, 3, (16, 16), impl=impl)
+    assert torch.isnan(out[1]).all() and not torch.isnan(out[0]).any()
+
+
+def collapsed(pos, g, chain, cells=3, seed=0):
+    """Every particle of `chain` piled into a few cells around one point:
+    the tiled kernel's hot cells (its shared-memory adds collide)."""
+    gen = torch.Generator(device=pos.device).manual_seed(seed)
+    d = torch.tensor(g.cell, device=pos.device).reshape(3, 1, 1, 1)
+    point = torch.tensor([0.31, 0.52, 0.77], device=pos.device).reshape(
+        3, 1, 1, 1) * torch.tensor([g.L1, g.L2, g.L3],
+                                   device=pos.device).reshape(3, 1, 1, 1)
+    out = pos.clone()
+    out[chain] = point + cells * d * torch.rand((3,) + g.shape, generator=gen,
+                                                device=pos.device)
+    return out.contiguous()
+
+
+def far_flung(pos, g, frac=0.05, seed=0):
+    """A fraction of the particles moved by about half the box in x, y and
+    z: their taps fall outside every tile's capped box, into the global
+    accumulator."""
+    gen = torch.Generator(device=pos.device).manual_seed(seed)
+    L = torch.tensor([g.L1, g.L2, g.L3], device=pos.device).reshape(
+        1, 3, 1, 1, 1)
+    sel = torch.rand((pos.shape[0], 1) + g.shape, generator=gen,
+                     device=pos.device) < frac
+    shift = torch.tensor([0.5, 0.45, 0.39], device=pos.device).reshape(
+        1, 3, 1, 1, 1) * L
+    return torch.remainder(torch.where(sel, pos + shift, pos), L).contiguous()
+
+
+G128 = GridSpec.cube(128, 200.0)
+TILED_CASES = {
+    # (grid, halo, block, violators, how the positions are changed)
+    "headline_128": (G128, 6, (16, 16), 0, None),
+    "collapsed_chain": (G128, 3, (16, 16), 500, "collapsed"),
+    "collapsed_wide_window": (G, 12, (16, 16), 200, "collapsed"),
+    "far_flung": (G128, 64, (16, 16), 0, "far_flung"),
+    "far_flung_violators": (GridSpec.cube(48, 75.0), (3, 2), (16, 16), 0,
+                            "far_flung"),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("weighted", [False, True])
+@pytest.mark.parametrize("case", sorted(TILED_CASES))
+def test_cuda_tiled_deposit_equals_witnesses(cuda, case, weighted):
+    """The tiled K1 on inputs that strain its design — a chain collapsed
+    into a few cells (hot cells, boxes at their cap) and particles flung
+    half a box away (taps outside every box) — equal to both witnesses bit
+    for bit and to itself from call to call.  The plain version is the
+    yardstick only where no cell sums thousands of taps: there its float32
+    sums drift beyond 2e-6 * max (measured on the H100), while the three
+    kernels' 64-bit integer sums are exact."""
+    g, halo, block, n_viol, how = TILED_CASES[case]
+    pos = positions(11, n_viol, g=g).to(cuda)
+    if how == "collapsed":
+        pos = collapsed(pos, g, chain=0)
+    elif how == "far_flung":
+        pos = far_flung(pos, g)
+    w = None
+    if weighted:
+        hx, hy = tk._halo_pair(halo)
+        w = (assign._halo_excess(pos, g, hx, hy) <= 0.0).float() * \
+            (0.5 + torch.rand((2,) + g.shape, device=cuda))
+    outs = [tk.tsc_deposit_window(pos, g, halo, block, weights=w, impl=impl)
+            for impl in ("tiled", "tiled", "push", "pull")]
+    torch.cuda.synchronize()
+    assert all(torch.equal(outs[0], o) for o in outs[1:])
+    if how != "collapsed":
+        assert_close(outs[0], tk.tsc_deposit_window_plain(pos, g, halo, block,
+                                                          weights=w))
 
 
 @pytest.mark.gpu
@@ -219,8 +315,9 @@ SLAB_CASES = {
 @pytest.mark.parametrize("case", sorted(SLAB_CASES))
 def test_cuda_slab_kernels_match_plain(cuda, case, weighted):
     """K3 and K4 (with and without the value) on every slab of 32^3 with
-    contract violators against their plain versions; K3 bit-identical from
-    call to call."""
+    contract violators against their plain versions; K3 (the tiled kernel)
+    bit-identical from call to call and to its push witness (the earlier
+    K3)."""
     D, h = SLAB_CASES[case]
     n1 = G.N1 // D
     pos = positions(7, 200).to(cuda)
@@ -229,11 +326,14 @@ def test_cuda_slab_kernels_match_plain(cuda, case, weighted):
         w = torch.rand((2, n1) + G.shape[1:], device=cuda) \
             if weighted else None
         n3, n4 = tk.tsc_deposit_slab.launches, tk.tsc_gather_grads_slab.launches
+        n3w = tk.tsc_deposit_slab_push.launches
         out = tk.tsc_deposit_slab(p, G, n1, k, h, weights=w)
         again = tk.tsc_deposit_slab(p, G, n1, k, h, weights=w)
+        push = tk.tsc_deposit_slab(p, G, n1, k, h, weights=w, impl="push")
         torch.cuda.synchronize()
         assert tk.tsc_deposit_slab.launches == n3 + 2
-        assert torch.equal(out, again)
+        assert tk.tsc_deposit_slab_push.launches == n3w + 1
+        assert torch.equal(out, again) and torch.equal(out, push)
         assert_close(out, tk.tsc_deposit_slab_plain(p, G, n1, k, h, weights=w))
         field = torch.randn(out.shape, device=cuda)
         for want_value in (False, True):
@@ -278,7 +378,7 @@ def test_cuda_wrappers_raise_on_bad_tensors(cuda):
 def test_cuda_runner_goes_through_the_kernels(cuda, tmp_path):
     """A 16^3 headline-config session on the card launches K1 and K2 once
     per gradient (init + N_eps_fac per attempt), K1 also once per dumped
-    deltaEUL/deltaRSS field, and stays finite."""
+    deltaEUL/deltaRSS field, no witness, and stays finite."""
     g = GridSpec.cube(16, 25.0)
     fc = ForwardConfig(sfmodel=3, masskernel="sph_ft", rsd=True,
                        pallas_deposit=True, pallas_halo=0, pallas_tail_k=1024)
@@ -287,6 +387,10 @@ def test_cuda_runner_goes_through_the_kernels(cuda, tmp_path):
                                    N_eps_fac=4, N_a_eps_update=8),
                      readPS=False)
     tk.tsc_deposit_window.launches = tk.tsc_gather_grads_window.launches = 0
+    witnesses = (tk.tsc_deposit_window_push, tk.tsc_deposit_window_stream,
+                 tk.tsc_deposit_slab_push)
+    for f in witnesses:
+        f.launches = 0
     r = Runner(conf, out_dir=str(tmp_path), device=cuda)
     r.attempt_batch = 2
     r.setup(n_chains=2)
@@ -299,6 +403,7 @@ def test_cuda_runner_goes_through_the_kernels(cuda, tmp_path):
         {f"deltaRSS_{i}.dat" for i in range(1, n_dumps + 1)}
     assert tk.tsc_deposit_window.launches == expected + 2 * n_dumps
     assert tk.tsc_gather_grads_window.launches == expected
+    assert all(f.launches == 0 for f in witnesses)
     assert torch.isfinite(states.psi).all()
 
 
