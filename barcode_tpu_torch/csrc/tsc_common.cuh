@@ -1,4 +1,4 @@
-// Shared per-particle arithmetic of the windowed TSC kernels (K1, K2).
+// Shared per-particle arithmetic of the windowed TSC kernels (K1-K4).
 //
 // One particle sits in each Lagrangian cell q = (qx, qy, qz); `pos` holds its
 // Eulerian position, laid out (C, 3, N1, N2, N3) float32 with chains C
@@ -43,12 +43,16 @@ __device__ __forceinline__ float tsc_dw(float dx, int s) {
   return -(1.5f - fabsf(r)) * sgn;
 }
 
-// base cell and fraction of one coordinate
-__device__ __forceinline__ void base_frac(float p, float d, int* b, float* f) {
-  float u = p / d;
+// base cell and fraction of one coordinate in cell units u = p / d
+__device__ __forceinline__ void base_frac_u(float u, int* b, float* f) {
   float fb = floorf(u);
   *b = (int)fb;
   *f = u - fb - 0.5f;
+}
+
+// base cell and fraction of one coordinate
+__device__ __forceinline__ void base_frac(float p, float d, int* b, float* f) {
+  base_frac_u(p / d, b, f);
 }
 
 // base cell unwrapped to Lagrangian row q: q + min-image(b - q), the
@@ -83,6 +87,59 @@ __device__ __forceinline__ void gather_axis(int bu, int q, int n, int B,
   int lo = (q / B) * B - h;
   *target = pos_mod(X, n);
   *in_window = (X >= lo) && (X < lo + B + 2 * h);
+}
+
+// The gather's per-particle arithmetic (K2, K4): the TSC weights and their
+// derivatives from the fractions; the nine z-sums s (value) and sd (z
+// derivative) in k order; val, gx, gy, gz accumulated over (a, b) in that
+// order, rows outside the window (mx, my) skipped; the derivatives divided
+// by the cell size.  `tap(a, b, k)` reads the field at offset (a-1, b-1,
+// k-1).  Every rounding is pinned (__fmaf_rn, __fmul_rn; the IEEE division
+// of a build without fast-math), so each kernel that includes this header
+// gets the same bits whatever its context lets the compiler contract.
+struct Gathered {
+  float val, gx, gy, gz;
+};
+
+template <class Tap>
+__device__ __forceinline__ Gathered gather_taps(float fx, float fy, float fz,
+                                                const bool (&mx)[3],
+                                                const bool (&my)[3], float d1,
+                                                float d2, float d3,
+                                                const Tap& tap) {
+  float wx[3], wy[3], wz[3], dwx[3], dwy[3], dwz[3];
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    const int o = k - 1;
+    wx[k] = tsc_w(fx, o);
+    wy[k] = tsc_w(fy, o);
+    wz[k] = tsc_w(fz, o);
+    dwx[k] = tsc_dw(fx, o);
+    dwy[k] = tsc_dw(fy, o);
+    dwz[k] = tsc_dw(fz, o);
+  }
+  float val = 0.0f, gx = 0.0f, gy = 0.0f, gz = 0.0f;
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    if (!mx[a]) continue;
+#pragma unroll
+    for (int b = 0; b < 3; ++b) {
+      if (!my[b]) continue;
+      float s = 0.0f, sd = 0.0f;
+#pragma unroll
+      for (int k = 0; k < 3; ++k) {
+        const float v = tap(a, b, k);
+        s = __fmaf_rn(wz[k], v, s);
+        sd = __fmaf_rn(dwz[k], v, sd);
+      }
+      const float wxy = __fmul_rn(wx[a], wy[b]);
+      val = __fmaf_rn(wxy, s, val);
+      gx = __fmaf_rn(__fmul_rn(dwx[a], wy[b]), s, gx);
+      gy = __fmaf_rn(__fmul_rn(wx[a], dwy[b]), s, gy);
+      gz = __fmaf_rn(wxy, sd, gz);
+    }
+  }
+  return Gathered{val, gx / d1, gy / d2, gz / d3};
 }
 
 }  // namespace tsc

@@ -33,10 +33,10 @@
 //   1. Each thread computes its particles' base cells (x/y/z unwrapped to
 //      the particle's own row, so a tile's cells are contiguous across the
 //      periodic seam) and the block reduces their min, max and mean.
-//   2. Lane 0 of warp 0 anchors an int64 box in shared memory on
-//      [min - 1, max + 1] per axis.  If that box exceeds `cap` cells, the
-//      longest axis is cut by an eighth until it fits, and a cut axis is
-//      centred on the mean.
+//   2. The block anchors an int64 box in shared memory on [min - 1, max + 1]
+//      per axis (tsc_tiled.cuh's block_box).  If that box exceeds `cap`
+//      cells, the longest axis is cut by an eighth until it fits, and a cut
+//      axis is centred on the mean.
 //   3. Every tap that passes the window rule goes into the box with a
 //      shared-memory atomic add, or, outside the box (a far-flung particle
 //      or a cut axis), straight into the global accumulator: the result is
@@ -48,15 +48,16 @@
 //
 // Measured on the card, the kernel is bound by instruction issue, not by
 // bytes: the hot loops take no integer division where the arguments lie
-// near the grid (exact fast paths, tsc_common.cuh's forms elsewhere), the
-// per-tap rounding takes one conversion (`fixed`), the flush divides by
-// multiplication (`div16`), and each thread's loads are issued before its
-// arithmetic.
+// near the grid (tsc_tiled.cuh's exact fast paths, tsc_common.cuh's forms
+// elsewhere), the per-tap rounding takes one conversion (`fixed`), the
+// flush divides by multiplication (`div16`), and each thread's loads are
+// issued before its arithmetic.
 #include <cuda_runtime.h>
 
 #include <climits>
 
 #include "tsc_common.cuh"
+#include "tsc_tiled.cuh"
 
 namespace {
 
@@ -64,52 +65,11 @@ constexpr int THREADS = 512;
 constexpr int WARPS = THREADS / 32;
 constexpr int TX = 16, TY = 16, TZ = 16;  // a block's tile of particles
 
-// Exact integer helpers without a division where the argument lies near
-// the grid, as every finite particle's does; elsewhere they fall back to
-// tsc_common.cuh's forms, so the result is the same for every input.
-
-// pos_mod(x, n)
-__device__ __forceinline__ int wrap(int x, int n) {
-  if (x >= 0 && x < n) return x;
-  if (x < 0 && x >= -n) return x + n;
-  if (x >= n && x - n < n) return x - n;
-  return tsc::pos_mod(x, n);
-}
-
-// tsc::unwrap(b, q, n): for |b - q| < n the min-image correction is -n, 0
-// or +n
-__device__ __forceinline__ int unwrap(int b, int q, int n) {
-  const int off = b - q;
-  if (off >= -n && off < n) {
-    const int t = 2 * off + n;
-    return t < 0 ? b + n : (t >= 2 * n ? b - n : b);
-  }
-  return tsc::unwrap(b, q, n);
-}
-
-// n / d for 0 <= n, d < 2^16 (box cells and extents), m = 2^32 / d + 1:
-// n * m / 2^32 exceeds n / d by less than 2^-16, less than the distance of
-// n / d from the next integer, so the floor is exact
-__device__ __forceinline__ int div16(int n, unsigned long long m) {
-  return (int)(((unsigned long long)n * m) >> 32);
-}
-
-// (x / B) * B for x >= 0; B a power of two takes a mask
-__device__ __forceinline__ int block_start(int x, int B, bool pow2) {
-  return pow2 ? (x & -B) : (x / B) * B;
-}
-
-// One axis of the deposit window rule, tsc::deposit_axis without divisions
-__device__ __forceinline__ bool deposit_axis(int bu, int q, int n, int B,
-                                             bool pow2, int h, int o,
-                                             int* target) {
-  const int X = bu + o;
-  const int Xw = wrap(X, n);
-  const int qq = q + (Xw - X);
-  const int lo = block_start(Xw, B, pow2) - h;
-  *target = Xw;
-  return qq >= lo && qq < lo + B + 2 * h;
-}
+using tsc::fast::block_start;
+using tsc::fast::deposit_axis;
+using tsc::fast::div16;
+using tsc::fast::unwrap;
+using tsc::fast::wrap;
 
 // the dense grid's x: unwrapped to the row, K1's deposit window rule
 struct DenseX {
@@ -196,41 +156,21 @@ __device__ __forceinline__ bool phase_a(const Particle& pt, const XRule& xr,
   return true;
 }
 
-constexpr int PER = TX * TY * TZ / THREADS;  // particles a thread
+using Tile = tsc::Tile<THREADS, TX, TY, TZ>;
+constexpr int PER = Tile::PER;
 
-// The block's tile, and this thread's particles in it: particle j of the
-// thread is the tile's particle threadIdx.x + j * THREADS, z fastest, so
-// consecutive threads read consecutive z.
-struct Tile {
-  int x0, y0, z0;
-  __device__ Tile(int N2, int N3) {
-    const int ntz = (N3 + TZ - 1) / TZ, nty = (N2 + TY - 1) / TY;
-    z0 = (int)(blockIdx.x % ntz) * TZ;
-    y0 = (int)(blockIdx.x / ntz % nty) * TY;
-    x0 = (int)(blockIdx.x / (ntz * nty)) * TX;
-  }
-  __device__ __forceinline__ void coords(int j, int& qx, int& qy,
-                                         int& qz) const {
-    const int i = (int)threadIdx.x + j * THREADS;
-    qz = z0 + i % TZ;
-    qy = y0 + i / TZ % TY;
-    qx = x0 + i / (TZ * TY);
-  }
-  // particle j's position and weight (weight 0 outside the grid); the
-  // weight does not gate the position loads, so all four are in flight
-  // together
-  __device__ __forceinline__ Particle load(const float* p, const float* w,
-                                           long long N, int R, int N2,
-                                           int N3, int j) const {
-    int qx, qy, qz;
-    coords(j, qx, qy, qz);
-    if (qx >= R || qy >= N2 || qz >= N3)
-      return Particle{0.0f, 0.0f, 0.0f, 0.0f};
-    const long long gi = ((long long)qx * N2 + qy) * N3 + qz;
-    return Particle{p[gi], p[N + gi], p[2 * N + gi],
-                    w != nullptr ? w[gi] : 1.0f};
-  }
-};
+// particle j's position and weight (weight 0 outside the grid); the weight
+// does not gate the position loads, so all four are in flight together
+__device__ __forceinline__ Particle load(const Tile& tile, const float* p,
+                                         const float* w, long long N, int R,
+                                         int N2, int N3, int j) {
+  int qx, qy, qz;
+  tile.coords(j, qx, qy, qz);
+  if (qx >= R || qy >= N2 || qz >= N3) return Particle{0.0f, 0.0f, 0.0f, 0.0f};
+  const long long gi = ((long long)qx * N2 + qy) * N3 + qz;
+  return Particle{p[gi], p[N + gi], p[2 * N + gi],
+                  w != nullptr ? w[gi] : 1.0f};
+}
 
 // 3. the taps of the block's particles, into the box or, outside it, into
 // the global accumulator
@@ -243,11 +183,11 @@ __device__ __forceinline__ void deposit_taps(
     int lo2, int E0, int E1, int E2) {
   const float scalef = (float)scale;
   int flag = 0;
-  Particle next = tile.load(p, w, N, R, N2, N3, 0);
+  Particle next = load(tile, p, w, N, R, N2, N3, 0);
 #pragma unroll 1
   for (int j = 0; j < PER; ++j) {
     const Particle pt = next;
-    if (j + 1 < PER) next = tile.load(p, w, N, R, N2, N3, j + 1);
+    if (j + 1 < PER) next = load(tile, p, w, N, R, N2, N3, j + 1);
     int qx, qy, qz;
     tile.coords(j, qx, qy, qz);
     int b0, b1, b2;
@@ -321,21 +261,6 @@ __device__ __forceinline__ void deposit_taps(
   }
 }
 
-// min, max and sum of the base cells, and the count, over a warp
-__device__ __forceinline__ void warp_reduce(int* mn, int* mx, long long* sm,
-                                            int& cnt) {
-#pragma unroll
-  for (int s = 16; s > 0; s >>= 1) {
-#pragma unroll
-    for (int a = 0; a < 3; ++a) {
-      mn[a] = min(mn[a], __shfl_xor_sync(0xffffffffu, mn[a], s));
-      mx[a] = max(mx[a], __shfl_xor_sync(0xffffffffu, mx[a], s));
-      sm[a] += __shfl_xor_sync(0xffffffffu, sm[a], s);
-    }
-    cnt += __shfl_xor_sync(0xffffffffu, cnt, s);
-  }
-}
-
 // blockIdx.x = tile (z fastest, then y, then x), blockIdx.y = chain.  R is
 // the particle grid's x extent (N1 dense, n1_loc slab), out_rows the
 // output's (N1 dense, n1_loc + 2h slab).
@@ -347,17 +272,12 @@ __global__ void __launch_bounds__(THREADS, 2) tsc_deposit_tiled_kernel(
     int out_rows, float d1, float d2, float d3, int BX, int BY, int hy,
     int cap) {
   extern __shared__ unsigned long long box[];
-  __shared__ int s_min[WARPS][3], s_max[WARPS][3];
-  __shared__ long long s_sum[WARPS][3];
-  __shared__ int s_cnt[WARPS];
-  __shared__ int s_lo[3], s_ext[3];
 
   const int c = blockIdx.y;
-  const Tile tile(N2, N3);
+  const Tile tile((int)blockIdx.x, N2, N3);
   const long long N = (long long)R * N2 * N3;
   const float* p = pos + (long long)c * 3 * N;
   const float* w = weights != nullptr ? weights + (long long)c * N : nullptr;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
 
   // 0. the box's cells to zero (all `cap`, while the loads are in flight)
   for (int i = threadIdx.x; i < cap; i += THREADS) box[i] = 0ull;
@@ -368,7 +288,7 @@ __global__ void __launch_bounds__(THREADS, 2) tsc_deposit_tiled_kernel(
   int cnt = 0, flag = 0;
   Particle pts[PER];
 #pragma unroll
-  for (int j = 0; j < PER; ++j) pts[j] = tile.load(p, w, N, R, N2, N3, j);
+  for (int j = 0; j < PER; ++j) pts[j] = load(tile, p, w, N, R, N2, N3, j);
 #pragma unroll
   for (int j = 0; j < PER; ++j) {
     int qx, qy, qz, b[3];
@@ -386,54 +306,12 @@ __global__ void __launch_bounds__(THREADS, 2) tsc_deposit_tiled_kernel(
     ++cnt;
   }
   if (flag) bad[c] = 1;
-  warp_reduce(mn, mx, sm, cnt);
-  if (lane == 0) {
-#pragma unroll
-    for (int a = 0; a < 3; ++a) {
-      s_min[warp][a] = mn[a];
-      s_max[warp][a] = mx[a];
-      s_sum[warp][a] = sm[a];
-    }
-    s_cnt[warp] = cnt;
-  }
-  __syncthreads();
 
-  // 2. the box, by warp 0: the warps' partials reduced across its lanes
-  if (warp == 0) {
-    const bool has = lane < WARPS;
-#pragma unroll
-    for (int a = 0; a < 3; ++a) {
-      mn[a] = has ? s_min[lane][a] : INT_MAX;
-      mx[a] = has ? s_max[lane][a] : INT_MIN;
-      sm[a] = has ? s_sum[lane][a] : 0;
-    }
-    cnt = has ? s_cnt[lane] : 0;
-    warp_reduce(mn, mx, sm, cnt);
-    if (lane == 0) {
-      long long ext[3], full[3];
-      for (int a = 0; a < 3; ++a) {
-        full[a] = cnt > 0 ? (long long)mx[a] - mn[a] + 3 : 0;
-        ext[a] = min(full[a], (long long)cap);
-      }
-      while (ext[0] * ext[1] * ext[2] > cap) {
-        const int a = ext[0] >= ext[1] ? (ext[0] >= ext[2] ? 0 : 2)
-                                       : (ext[1] >= ext[2] ? 1 : 2);
-        ext[a] -= max(1ll, ext[a] / 8);
-      }
-      for (int a = 0; a < 3; ++a) {
-        long long l = (long long)mn[a] - 1;
-        if (ext[a] < full[a]) {  // cut: centre on the mean, inside the range
-          l = sm[a] / cnt - ext[a] / 2;
-          l = max((long long)mn[a] - 1, min(l, (long long)mx[a] + 2 - ext[a]));
-        }
-        s_lo[a] = (int)l;
-        s_ext[a] = (int)ext[a];
-      }
-    }
-  }
-  __syncthreads();
-  const int lo0 = s_lo[0], lo1 = s_lo[1], lo2 = s_lo[2];
-  const int E0 = s_ext[0], E1 = s_ext[1], E2 = s_ext[2];
+  // 2. the box
+  int lo[3], E[3];
+  tsc::block_box<WARPS>(mn, mx, sm, cnt, cap, lo, E);
+  const int lo0 = lo[0], lo1 = lo[1], lo2 = lo[2];
+  const int E0 = E[0], E1 = E[1], E2 = E[2];
 
   // 3. the taps
   unsigned long long* out = acc + (long long)c * out_rows * N2 * N3;

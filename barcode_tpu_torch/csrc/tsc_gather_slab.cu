@@ -18,7 +18,9 @@
 //
 // What bounds it on an H100: memory, as K2.  Design: K2's, one thread per
 // particle and no shared memory; each output is written by one thread, so
-// the result is deterministic.
+// the result is deterministic.  The tiled gather
+// (csrc/tsc_gather_tiled.cu, slab geometry) serves K4 on every path; this
+// kernel stays built as its witness, reached only with `impl="thread"`.
 #include "tsc_common.cuh"
 
 namespace {
@@ -49,7 +51,6 @@ __global__ void tsc_gather_grads_slab_kernel(
   const int lo = (r / BX) * BX - h;
   int tx[3], ty[3], tz[3];
   bool mx[3], my[3];
-  float wx[3], wy[3], wz[3], dwx[3], dwy[3], dwz[3];
 #pragma unroll
   for (int k = 0; k < 3; ++k) {
     const int o = k - 1;
@@ -58,46 +59,23 @@ __global__ void tsc_gather_grads_slab_kernel(
     tx[k] = X + h;
     tsc::gather_axis(by, qy, N2, BY, h, o, &ty[k], &my[k]);
     tz[k] = tsc::pos_mod(bz + o, N3);
-    wx[k] = tsc::tsc_w(fx, o);
-    wy[k] = tsc::tsc_w(fy, o);
-    wz[k] = tsc::tsc_w(fz, o);
-    dwx[k] = tsc::tsc_dw(fx, o);
-    dwy[k] = tsc::tsc_dw(fy, o);
-    dwz[k] = tsc::tsc_dw(fz, o);
   }
 
   const long long n_ext = (long long)(n1_loc + 2 * h) * N2 * N3;
   const float* f = field + (long long)c * n_ext;
-  float val = 0.0f, gx = 0.0f, gy = 0.0f, gz = 0.0f;
-#pragma unroll
-  for (int a = 0; a < 3; ++a) {
-    if (!mx[a]) continue;
-#pragma unroll
-    for (int b = 0; b < 3; ++b) {
-      if (!my[b]) continue;
-      const float* row = f + ((long long)tx[a] * N2 + ty[b]) * N3;
-      float s = 0.0f, sd = 0.0f;
-#pragma unroll
-      for (int k = 0; k < 3; ++k) {
-        const float v = __ldg(row + tz[k]);
-        s += wz[k] * v;
-        sd += dwz[k] * v;
-      }
-      val += wx[a] * wy[b] * s;
-      gx += dwx[a] * wy[b] * s;
-      gy += wx[a] * dwy[b] * s;
-      gz += wx[a] * wy[b] * sd;
-    }
-  }
+  const tsc::Gathered res = tsc::gather_taps(
+      fx, fy, fz, mx, my, d1, d2, d3, [&](int a, int b, int k) {
+        return __ldg(f + ((long long)tx[a] * N2 + ty[b]) * N3 + tz[k]);
+      });
 
   float* o = out + (long long)c * (want_value ? 4 : 3) * N;
   if (want_value) {
-    o[i] = val;
+    o[i] = res.val;
     o += N;
   }
-  o[i] = gx / d1;
-  o[N + i] = gy / d2;
-  o[2 * N + i] = gz / d3;
+  o[i] = res.gx;
+  o[N + i] = res.gy;
+  o[2 * N + i] = res.gz;
 }
 
 }  // namespace

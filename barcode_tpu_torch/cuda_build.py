@@ -18,15 +18,17 @@ import ctypes
 import dataclasses
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("tsc_deposit_tiled.cu", "tsc_deposit.cu", "tsc_deposit_stream.cu",
-           "tsc_gather.cu", "tsc_deposit_slab.cu", "tsc_gather_slab.cu")
-HEADERS = ("tsc_common.cuh",)
+SOURCES = ("tsc_deposit_tiled.cu", "tsc_gather_tiled.cu", "tsc_deposit.cu",
+           "tsc_deposit_stream.cu", "tsc_gather.cu", "tsc_deposit_slab.cu",
+           "tsc_gather_slab.cu")
+HEADERS = ("tsc_common.cuh", "tsc_tiled.cuh")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 COMPILE_FLAGS = ARCH_FLAGS + ("-O3", "-std=c++17", "-Xcompiler", "-fPIC",
                               "-Xptxas", "-v")
@@ -39,6 +41,9 @@ SIGNATURES = {
     "tsc_deposit_tiled_launch":
         [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _F, _I, _I, _I,
          _I, _I, _I, _I, _P],
+    "tsc_gather_tiled_launch":
+        [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _F, _I, _I, _I, _I, _I,
+         _I, _I, _I, _P],
     "tsc_deposit_window_launch":
         [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _I, _I, _I, _I,
          _P],
@@ -148,10 +153,38 @@ def load() -> tuple[ctypes.CDLL, BuildInfo]:
             getattr(lib, fn).restype = ctypes.c_int
         lib.tsc_deposit_tiled_blocks_per_sm.argtypes = [_I, _I]
         lib.tsc_deposit_tiled_blocks_per_sm.restype = ctypes.c_int
+        lib.tsc_gather_tiled_blocks_per_sm.argtypes = [_I, _I]
+        lib.tsc_gather_tiled_blocks_per_sm.restype = ctypes.c_int
         lib.tsc_cuda_error_string.argtypes = [ctypes.c_int]
         lib.tsc_cuda_error_string.restype = ctypes.c_char_p
         _loaded = (lib, info)
     return _loaded
+
+
+def ptxas_functions(report: str) -> dict:
+    """Per kernel of a `-Xptxas -v` report: {mangled name: {"registers",
+    "stack", "spill_stores", "spill_loads"}} (bytes for the last three)."""
+    out, name = {}, None
+    for line in report.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'|"
+                      r"Function properties for (\S+)", line)
+        if m:
+            name = m.group(1) or m.group(2)
+            out.setdefault(name, dict.fromkeys(
+                ("registers", "stack", "spill_stores", "spill_loads"), 0))
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            out[name].update(stack=int(m.group(1)),
+                             spill_stores=int(m.group(2)),
+                             spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[name]["registers"] = int(m.group(1))
+    return out
 
 
 def sass(path: Path, name: str) -> str:

@@ -29,21 +29,22 @@ Each wrapper takes a CPU tensor to its plain PyTorch version, written with
 the same window semantics (the tests hold these against the Pallas kernels
 in interpret mode), and a CUDA tensor to its hand-written CUDA kernel.
 Both deposits launch one shared-memory kernel, `csrc/tsc_deposit_tiled.cu`,
-in its dense or its slab geometry; the gathers launch `csrc/tsc_gather.cu`
-and `csrc/tsc_gather_slab.cu`.  There is no fallback: a CUDA tensor
-launches the kernel or raises.  Each kernel's launches are counted in the
-`launches` attribute of its launcher: `tsc_deposit_window` (K1),
-`tsc_gather_grads_window` (K2), `tsc_deposit_slab` (K3) and
-`tsc_gather_grads_slab` (K4).
+and both gathers another, `csrc/tsc_gather_tiled.cu`, each in its dense or
+its slab geometry.  There is no fallback: a CUDA tensor launches the kernel
+or raises.  Each kernel's launches are counted in the `launches` attribute
+of its launcher: `tsc_deposit_window` (K1), `tsc_gather_grads_window` (K2),
+`tsc_deposit_slab` (K3) and `tsc_gather_grads_slab` (K4).
 
-The deposits' earlier kernels stay built as witnesses: the bit-for-bit
-yardstick of the tiled kernel on the card, timed beside it.  Only an
-explicit `impl=` reaches them (`"push"`: csrc/tsc_deposit.cu and
-csrc/tsc_deposit_slab.cu, one thread per particle with global atomics;
-`"pull"`: csrc/tsc_deposit_stream.cu, the streamed-window K1s), and they
-count their launches apart: `tsc_deposit_window_push`,
-`tsc_deposit_window_stream`, `tsc_deposit_slab_push`.  No path of the
-program passes `impl`.
+The earlier kernels stay built as witnesses: the bit-for-bit yardstick of
+the tiled kernels on the card, timed beside them.  Only an explicit `impl=`
+reaches them (`"push"`: csrc/tsc_deposit.cu and csrc/tsc_deposit_slab.cu,
+one thread per particle with global atomics; `"pull"`:
+csrc/tsc_deposit_stream.cu, the streamed-window K1s; `"thread"`:
+csrc/tsc_gather.cu and csrc/tsc_gather_slab.cu, one thread per particle),
+and they count their launches apart: `tsc_deposit_window_push`,
+`tsc_deposit_window_stream`, `tsc_deposit_slab_push`,
+`tsc_gather_grads_window_thread`, `tsc_gather_grads_slab_thread`.  No path
+of the program passes `impl`.
 
 Positions are (3,) + grid or (C, 3) + grid for C chains (one launch covers
 all chains); weights and fields are grid or (C,) + grid.
@@ -419,7 +420,53 @@ def tiled_plan(rows: int, n2: int, n3: int, chains: int) -> TiledPlan:
                      8 * TILED_BOX_CELLS, (tiles, chains))
 
 
+# The tiled gather (csrc/tsc_gather_tiled.cu, whose THREADS and TX, TY, TZ
+# these mirror): one block of GATHER_THREADS threads takes a Lagrangian tile
+# of GATHER_TILE particles of one chain and stages the field cells its
+# particles' stencils read in a float32 box of at most GATHER_BOX_CELLS
+# cells (54 KB) of shared memory, beside the tile's positions (48 KB) and
+# the list of its particles whose stencil leaves the box (8 KB), which read
+# device memory.  The kernel's launch bound asks for GATHER_BLOCKS blocks an
+# SM (at most 64 registers a thread).
+GATHER_TILE = (16, 16, 16)
+GATHER_THREADS = 512
+GATHER_BOX_CELLS = 13824
+GATHER_BLOCKS = 2
+SM_THREADS = 2048  # an H100 SM's resident threads
+
+
+@dataclasses.dataclass(frozen=True)
+class GatherPlan:
+    """The tiled gather's launch: particle tile (x, y, z) of one block,
+    threads per block, box cells, dynamic shared-memory bytes and the grid
+    (tiles, chains)."""
+    tile: tuple
+    threads: int
+    box_cells: int
+    smem_bytes: int
+    grid: tuple
+
+    @property
+    def blocks_per_sm(self) -> int:
+        """Blocks resident on one SM: as many as its shared memory and
+        threads hold, at most the launch bound's."""
+        by_smem = SM_SHARED_BYTES // (self.smem_bytes + STATIC_SHARED_BYTES
+                                      + BLOCK_SHARED_RESERVED)
+        return min(by_smem, SM_THREADS // self.threads, GATHER_BLOCKS)
+
+
+def gather_plan(rows: int, n2: int, n3: int, chains: int) -> GatherPlan:
+    """The tiled gather's launch for a particle grid of rows x n2 x n3 (N1
+    dense, n1_loc for a slab) and `chains` chains."""
+    tiles = math.prod(-(-n // t) for t, n in zip(GATHER_TILE, (rows, n2, n3)))
+    per_tile = math.prod(GATHER_TILE)
+    smem = 4 * GATHER_BOX_CELLS + 12 * per_tile + 2 * per_tile
+    return GatherPlan(GATHER_TILE, GATHER_THREADS, GATHER_BOX_CELLS, smem,
+                      (tiles, chains))
+
+
 _DEPOSIT_IMPLS = ("tiled", "push", "pull")
+_GATHER_IMPLS = ("tiled", "thread")
 
 
 def _deposit_tiled(pos, weights, g: GridSpec, rows: int, out_rows: int,
@@ -577,14 +624,44 @@ def tsc_deposit_window_stream(pos, g: GridSpec, halo, block: tuple,
 tsc_deposit_window_stream.launches = 0
 
 
+def _gather_tiled(field, pos, g: GridSpec, rows: int, start: int,
+                  block: tuple, hx: int, hy: int, slab: bool,
+                  want_value: bool, taps=None):
+    """Launches csrc/tsc_gather_tiled.cu on checked inputs (`taps`: None or
+    two zeroed int64 counters on the device); returns (library, status,
+    output) for the caller to check and count."""
+    from barcode_tpu_torch import cuda_build
+
+    lib, _ = cuda_build.load()
+    batch = tuple(pos.shape[:-4])
+    C = batch[0] if batch else 1
+    plan = gather_plan(rows, g.N2, g.N3, C)
+    nch = 4 if want_value else 3
+    out = torch.empty(batch + (nch, rows, g.N2, g.N3), dtype=torch.float32,
+                      device=pos.device)
+    d1, d2, d3 = g.cell
+    with torch.cuda.device(pos.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        status = lib.tsc_gather_tiled_launch(
+            field.data_ptr(), pos.data_ptr(), out.data_ptr(),
+            taps.data_ptr() if taps is not None else None, C, rows, g.N1,
+            g.N2, g.N3, d1, d2, d3, start, block[0], block[1], hx, hy,
+            int(slab), int(want_value), plan.box_cells, stream)
+    return lib, status, out
+
+
 def tsc_gather_grads_window(field, pos, g: GridSpec, halo=4, block=(8, 8),
-                            want_value=True):
+                            want_value=True, impl="tiled"):
     """K2: windowed TSC value + position-gradient gather (TPU:
     pallas_deposit.tsc_gather_grads_pallas).
 
     Returns batch + (4|3,) + grid float32: [value,] d/dx, d/dy, d/dz per
     physical position.  hy is rounded as on the TPU.  CPU tensors take the
-    plain version; CUDA tensors launch csrc/tsc_gather.cu."""
+    plain version for every `impl`; CUDA tensors launch
+    csrc/tsc_gather_tiled.cu, or with `impl="thread"` the witness
+    csrc/tsc_gather.cu (the same bits, for checks and timings only)."""
+    if impl not in _GATHER_IMPLS:
+        raise ValueError(f"impl must be one of {_GATHER_IMPLS}, got {impl!r}")
     hx, hy = _halo_pair(halo)
     hy = _round_halo(hy, block[1])
     _check_positions(pos, g, hx, hy, block)
@@ -598,23 +675,46 @@ def tsc_gather_grads_window(field, pos, g: GridSpec, halo=4, block=(8, 8),
     batch = tuple(pos.shape[:-4])
     _check_tensor("pos", pos, pos.shape, pos.device)
     _check_tensor("field", field, batch + g.shape, pos.device)
-    lib, _ = cuda_build.load()
-    nch = 4 if want_value else 3
-    out = torch.empty(batch + (nch,) + g.shape, dtype=torch.float32,
-                      device=pos.device)
-    C = batch[0] if batch else 1
-    with torch.cuda.device(pos.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        status = lib.tsc_gather_grads_window_launch(
-            field.data_ptr(), pos.data_ptr(), out.data_ptr(),
-            *_launch_args(g, C), block[0], block[1], hx, hy, int(want_value),
-            stream)
+    if impl == "thread":
+        return tsc_gather_grads_window_thread(field, pos, g, (hx, hy), block,
+                                              want_value)
+    lib, status, out = _gather_tiled(field, pos, g, g.N1, 0, block, hx, hy,
+                                     False, want_value)
     cuda_build.check(lib, status, "tsc_gather_grads_window")
     tsc_gather_grads_window.launches += 1
     return out
 
 
 tsc_gather_grads_window.launches = 0
+
+
+def tsc_gather_grads_window_thread(field, pos, g: GridSpec, halo, block: tuple,
+                                   want_value: bool):
+    """Witness launcher: `tsc_gather_grads_window(..., impl="thread")` on
+    CUDA tensors (csrc/tsc_gather.cu, one thread per particle).  `halo` is
+    the (hx, hy) pair with hy already rounded; inputs are checked by the
+    caller."""
+    from barcode_tpu_torch import cuda_build
+
+    hx, hy = halo
+    batch = tuple(pos.shape[:-4])
+    C = batch[0] if batch else 1
+    lib, _ = cuda_build.load()
+    nch = 4 if want_value else 3
+    out = torch.empty(batch + (nch,) + g.shape, dtype=torch.float32,
+                      device=pos.device)
+    with torch.cuda.device(pos.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        status = lib.tsc_gather_grads_window_launch(
+            field.data_ptr(), pos.data_ptr(), out.data_ptr(),
+            *_launch_args(g, C), block[0], block[1], hx, hy, int(want_value),
+            stream)
+    cuda_build.check(lib, status, "tsc_gather_grads_window_thread")
+    tsc_gather_grads_window_thread.launches += 1
+    return out
+
+
+tsc_gather_grads_window_thread.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -843,14 +943,19 @@ tsc_deposit_slab_push.launches = 0
 
 
 def tsc_gather_grads_slab(ext_field, pos, g: GridSpec, n1_loc: int, dev: int,
-                          halo: int, block=(8, 8), want_value=True):
+                          halo: int, block=(8, 8), want_value=True,
+                          impl="tiled"):
     """K4: value + position-gradient gather of an extended-slab field at
     slab `dev`'s particles, the exact adjoint of K3 (TPU:
     pallas_deposit.tsc_gather_grads_pallas_slab).
 
     Returns batch + (4|3, n1_loc, N2, N3) float32: [value,] d/dx, d/dy,
-    d/dz per physical position.  CPU tensors take the plain version; CUDA
-    tensors launch csrc/tsc_gather_slab.cu."""
+    d/dz per physical position.  CPU tensors take the plain version for
+    every `impl`; CUDA tensors launch csrc/tsc_gather_tiled.cu in its slab
+    geometry, or with `impl="thread"` the witness csrc/tsc_gather_slab.cu
+    (the same bits, for checks and timings only)."""
+    if impl not in _GATHER_IMPLS:
+        raise ValueError(f"impl must be one of {_GATHER_IMPLS}, got {impl!r}")
     block = tuple(block)
     _check_slab(pos, g, n1_loc, dev, halo, block, n1_loc)
     if pos.device.type == "cpu":
@@ -864,6 +969,28 @@ def tsc_gather_grads_slab(ext_field, pos, g: GridSpec, n1_loc: int, dev: int,
     _check_tensor("pos", pos, pos.shape, pos.device)
     _check_tensor("ext_field", ext_field,
                   batch + (n1_loc + 2 * halo, g.N2, g.N3), pos.device)
+    if impl == "thread":
+        return tsc_gather_grads_slab_thread(ext_field, pos, g, n1_loc, dev,
+                                            halo, block, want_value)
+    lib, status, out = _gather_tiled(ext_field, pos, g, n1_loc, dev * n1_loc,
+                                     block, halo, halo, True, want_value)
+    cuda_build.check(lib, status, "tsc_gather_grads_slab")
+    tsc_gather_grads_slab.launches += 1
+    return out
+
+
+tsc_gather_grads_slab.launches = 0
+
+
+def tsc_gather_grads_slab_thread(ext_field, pos, g: GridSpec, n1_loc: int,
+                                 dev: int, halo: int, block: tuple,
+                                 want_value: bool):
+    """Witness launcher: `tsc_gather_grads_slab(..., impl="thread")` on CUDA
+    tensors (csrc/tsc_gather_slab.cu, one thread per particle); inputs are
+    checked by the caller."""
+    from barcode_tpu_torch import cuda_build
+
+    batch = tuple(pos.shape[:-4])
     lib, _ = cuda_build.load()
     nch = 4 if want_value else 3
     out = torch.empty(batch + (nch, n1_loc, g.N2, g.N3), dtype=torch.float32,
@@ -875,9 +1002,45 @@ def tsc_gather_grads_slab(ext_field, pos, g: GridSpec, n1_loc: int, dev: int,
             ext_field.data_ptr(), pos.data_ptr(), out.data_ptr(),
             *_slab_launch_args(g, C, n1_loc, dev), block[0], block[1], halo,
             int(want_value), stream)
-    cuda_build.check(lib, status, "tsc_gather_grads_slab")
-    tsc_gather_grads_slab.launches += 1
+    cuda_build.check(lib, status, "tsc_gather_grads_slab_thread")
+    tsc_gather_grads_slab_thread.launches += 1
     return out
 
 
-tsc_gather_grads_slab.launches = 0
+tsc_gather_grads_slab_thread.launches = 0
+
+
+def gather_taps_outside_box(field, pos, g: GridSpec, halo, block,
+                            slab=None):
+    """The tiled gather's taps inside the windows that read device memory
+    (their particle's stencil leaves its tile's box), and all its taps
+    inside the windows, counted by one launch on CUDA tensors (want_value
+    False).  `slab` is None (K2: `halo` and `block` as
+    tsc_gather_grads_window takes them) or (n1_loc, dev) (K4, `halo` the
+    slab's).  The launch counts on its wrapper's counter."""
+    from barcode_tpu_torch import cuda_build
+
+    if pos.device.type != "cuda":
+        raise ValueError("the tiled gather's taps are counted on the card "
+                         f"only, not on {pos.device}")
+    block = tuple(block)
+    if slab is None:
+        hx, hy = _halo_pair(halo)
+        hy = _round_halo(hy, block[1])
+        _check_positions(pos, g, hx, hy, block)
+        rows, start, wrapper, shape = g.N1, 0, tsc_gather_grads_window, g.shape
+    else:
+        n1_loc, dev = slab
+        _check_slab(pos, g, n1_loc, dev, halo, block, n1_loc)
+        hx = hy = halo
+        rows, start, wrapper = n1_loc, dev * n1_loc, tsc_gather_grads_slab
+        shape = (n1_loc + 2 * halo, g.N2, g.N3)
+    _check_tensor("pos", pos, pos.shape, pos.device)
+    _check_tensor("field", field, tuple(pos.shape[:-4]) + shape, pos.device)
+    taps = torch.zeros(2, dtype=torch.int64, device=pos.device)
+    lib, status, _ = _gather_tiled(field, pos, g, rows, start, block, hx, hy,
+                                   slab is not None, False, taps)
+    cuda_build.check(lib, status, "gather_taps_outside_box")
+    wrapper.launches += 1
+    outside, total = taps.tolist()
+    return outside, total

@@ -5,12 +5,14 @@
 
 Drives the port's three paths and checks the CUDA kernels on the way.
 Every windowed deposit on the card runs the shared-memory kernel
-csrc/tsc_deposit_tiled.cu (K1 dense, K3 slab); the earlier deposit kernels
-(push: csrc/tsc_deposit.cu, csrc/tsc_deposit_slab.cu; pull, the streamed
-K1s: csrc/tsc_deposit_stream.cu) stay built as witnesses, reached only with
-`impl=`: each check holds the tiled kernel against them bit for bit, the
-timing phase times them beside it, and their launch counters must read 0
-on every path.  The paths:
+csrc/tsc_deposit_tiled.cu (K1 dense, K3 slab), and every gather the
+shared-memory kernel csrc/tsc_gather_tiled.cu (K2 dense, K4 slab); the
+earlier kernels (push: csrc/tsc_deposit.cu, csrc/tsc_deposit_slab.cu;
+pull, the streamed K1s: csrc/tsc_deposit_stream.cu; thread:
+csrc/tsc_gather.cu, csrc/tsc_gather_slab.cu) stay built as witnesses,
+reached only with `impl=`: each check holds the tiled kernels against them
+bit for bit, the timing phase times them beside them, and their launch
+counters must read 0 on every path.  The paths:
   * the 128^3 headline configuration (bench.py:60-155: ALPT +
     plane-parallel RSD, sph_ft, Gaussian likelihood, mass type 1,
     N_eps_fac=8, the kernel deposit with the halo-tail split) through
@@ -25,15 +27,19 @@ on every path.  The paths:
 Phases:
   1. device       card name, count and `nvidia-smi` name/power limit
   2. build        nvcc build of csrc/*.cu (sm_90a) and its ptxas report;
-                  the shared-memory atomics in the tiled kernel's SASS,
+                  the shared-memory atomics in the tiled deposit's SASS,
                   whether a 64-bit shared-memory add is native on sm_90a,
-                  and the tiled kernel's resident blocks per SM
+                  the tiled deposit's resident blocks per SM, the tiled
+                  gather's registers and spills (none allowed) and its
+                  resident blocks per SM
   3. determinism  the windowless and tail-split deposits (fixed point) give
                   the same bits on every call at 128^3
   4. kernels      K1 (deposit) and K2 (gather) against their plain PyTorch
                   versions at 32^3 with forced contract violators and at the
                   headline 128^3 shapes with 2 chains; K1 equals the push
-                  and pull witnesses and itself, bit for bit
+                  and pull witnesses and itself, K2 its thread witness and
+                  itself (with and without the value), bit for bit; the
+                  share of K2's taps outside its tiles' boxes
   5. psi          psi and grad psi at 128^3 on the card (kernels) and on the
                   CPU (plain versions) from the same delta
   6. path         the 128^3 Runner session, with the kernel launch counters
@@ -43,7 +49,8 @@ Phases:
                   streams: K1s on the TPU) against its plain version, the
                   push and pull witnesses and itself, and with forced
                   violators at 32^3 where the window is wider than the grid;
-                  K2 against its plain version at the 256^3 shapes
+                  K2 against its plain version, its witness and itself at
+                  the 256^3 shapes
   8. psi256       psi and grad psi at 256^3 (one chain), card against CPU
   9. cli256       three command-line calls at 256^3 (session; --resume with
                   --profile; restart from deltaLAG_2 + the performance log),
@@ -56,9 +63,10 @@ Phases:
                   mass types 0, 2, 3 and 5 built on the card
  11. slab_kernels K3 and K4 against their plain versions at 32^3 (violators,
                   windows wider than the slab) and at the 256^3 one-rank
-                  shapes; K3 against its push witness and itself bit for
-                  bit; per-slab K3/K4 at 128^3 for 2 and 4 slabs on one card
-                  against K1/K2
+                  shapes; K3 against its push witness and K4 against its
+                  thread witness, each against itself, bit for bit; per-slab
+                  K3/K4 at 128^3 for 2 and 4 slabs on one card against K1/K2
+                  (K4 also against its witness and itself)
  12. sharded_psi256
                   sharded psi and grad psi at 256^3, one rank over NCCL,
                   against the dense psi on the card
@@ -67,7 +75,9 @@ Phases:
                   --resume; restart from deltaLAG_2 without
                   checkpoint_sharded.npz), launch counters checked
  14. timing       CUDA-event times of each kernel at its path's shapes, the
-                  witnesses beside the tiled kernel on the same inputs
+                  witnesses beside the tiled kernels on the same inputs; K1
+                  and K2 also at the chains' positions after the 256^3
+                  session, checked there against their witnesses first
 
 Every phase raises on failure, so any failure exits non-zero.  It needs a
 card: without one (or without the package beside it) it exits non-zero
@@ -218,17 +228,47 @@ def violator_positions(g: GridSpec, chains: int, n_viol: int, dev,
     return torch.remainder(pos, L).contiguous()
 
 
-def check_gather(cot, pos, g, halo, block):
-    """K2 with and without the value against its plain version; returns
-    the errors keyed "K2 value=<want_value>"."""
+def check_same(label, gather):
+    """A gather (`gather(impl)`) equal bit for bit to its thread witness
+    (the earlier kernel) and to itself from call to call; returns the
+    tiled output."""
+    out, again, thread = gather("tiled"), gather("tiled"), gather("thread")
+    same = {"thread": torch.equal(out, thread),
+            "itself": torch.equal(out, again)}
+    print(f"  {label}: == " + ", == ".join(f"{k} {v}"
+                                           for k, v in same.items()))
+    if not all(same.values()):
+        raise RuntimeError(f"{label} differs from its witness or itself")
+    return out
+
+
+def print_taps_outside_box(label, field, pos, g, halo, block, slab=None):
+    """The share of the tiled gather's taps that read device memory (their
+    particle's stencil leaves its tile's box); None off the card."""
+    if pos.device.type != "cuda":
+        return None
+    outside, total = tk.gather_taps_outside_box(field, pos, g, halo, block,
+                                                slab)
+    print(f"  {label}: {outside} of {total} taps outside the box "
+          f"({outside / max(total, 1):.4f})")
+    return outside / max(total, 1)
+
+
+def check_gather(cot, pos, g, halo, block, label=""):
+    """K2 with and without the value against its plain version, its thread
+    witness and itself; returns the errors keyed "K2 value=<want_value>"."""
     errs = {}
     for want_value in (False, True):
-        out = tk.tsc_gather_grads_window(cot, pos, g, halo, block, want_value)
+        out = check_same(
+            f"K2{label} want_value={want_value}",
+            lambda impl: tk.tsc_gather_grads_window(
+                cot, pos, g, halo, block, want_value, impl=impl))
         sync(pos.device)
         ref = tk.tsc_gather_grads_window_plain(cot, pos, g, halo, block,
                                                want_value)
         errs[f"K2 value={want_value}"] = compare(
-            f"K2 want_value={want_value}", out, ref, TOL_GATHER_REL)
+            f"K2{label} want_value={want_value}", out, ref, TOL_GATHER_REL)
+    print_taps_outside_box(f"K2{label}", cot, pos, g, halo, block)
     return errs
 
 
@@ -264,7 +304,7 @@ def check_kernels(label, g, pos, halo, block_dep, block, weights, cot):
     errs = {f"K1 {tag}": check_witnesses(f"{label} {tag}", g, pos, halo,
                                          block_dep, w)
             for w, tag in ((None, "unweighted"), (weights, "weighted"))}
-    errs.update(check_gather(cot, pos, g, halo, block))
+    errs.update(check_gather(cot, pos, g, halo, block, f" {label}"))
     return errs
 
 
@@ -527,7 +567,8 @@ def phase_kernels256(dev, conf: RunConfig, tmp: str):
     cot = torch.randn((N_CHAINS,) + g.shape, device=dev,
                       generator=torch.Generator(device=dev).manual_seed(13))
     print(f"  K2 at {g.N1}^3: halo {halo}, block {block}, chains {N_CHAINS}")
-    errs.update(check_gather(cot, pos, g, halo, block))
+    errs.update(check_gather(cot, pos, g, halo, block,
+                             f" {g.N1}^3 truth's positions"))
     g32 = GridSpec.cube(32, 32 * BOX / N_GRID)
     pos32 = violator_positions(g32, N_CHAINS, 200, dev)
     w32 = torch.rand((N_CHAINS,) + g32.shape,
@@ -596,7 +637,9 @@ KERNEL_LAUNCHERS = {"K1": tk.tsc_deposit_window,
                     # the witnesses: 0 on every path
                     "K1 push": tk.tsc_deposit_window_push,
                     "K1s pull": tk.tsc_deposit_window_stream,
-                    "K3 push": tk.tsc_deposit_slab_push}
+                    "K3 push": tk.tsc_deposit_slab_push,
+                    "K2 thread": tk.tsc_gather_grads_window_thread,
+                    "K4 thread": tk.tsc_gather_grads_slab_thread}
 
 
 def zero_launches():
@@ -609,15 +652,16 @@ def read_launches():
 
 
 def path_inputs(runner: Runner) -> dict:
-    """The deposit's inputs at a dense runner's chain positions: the
-    forward model's displaced positions of its chains' delta, its halo and
-    deposit block, and the tail split's weights (1 inside the contract)."""
+    """The kernels' inputs at a dense runner's chain positions: the forward
+    model's displaced positions of its chains' delta, its halo, gather and
+    deposit blocks, and the tail split's weights (1 inside the contract)."""
     g, gp, fc = runner.g, runner.gp, runner.conf.model.forward
     with torch.no_grad():
         pos = displaced_positions(runner.states.delta, g, fc, gp).contiguous()
     hx, hy = tk._halo_pair(fc.pallas_halo)
     ok = (assign._halo_excess(pos, g, hx, hy) <= 0.0).float()
     return dict(g=g, pos=pos, ok=ok, halo=fc.pallas_halo,
+                block=tuple(fc.pallas_block),
                 block_dep=assign.auto_block_dep(g, fc.pallas_halo,
                                                 tuple(fc.pallas_block)))
 
@@ -804,7 +848,9 @@ def fold_slabs(exts, g: GridSpec, n1: int, h: int):
 
 def check_slab(label, g, pos, n1, dev, h, weights, cot):
     """K3 (against its plain version, its push witness and itself) and K4
-    (with and without the value) on one slab; returns the errors."""
+    (with and without the value; against its plain version, its thread
+    witness and itself) on one slab; returns the errors and K4's share of
+    taps outside the box."""
     out = tk.tsc_deposit_slab(pos, g, n1, dev, h, weights=weights)
     again = tk.tsc_deposit_slab(pos, g, n1, dev, h, weights=weights)
     push = tk.tsc_deposit_slab(pos, g, n1, dev, h, weights=weights,
@@ -817,13 +863,17 @@ def check_slab(label, g, pos, n1, dev, h, weights, cot):
     if not all(same.values()):
         raise RuntimeError(f"K3 {label} differs from its witness or itself")
     for want_value in (False, True):
-        o = tk.tsc_gather_grads_slab(cot, pos, g, n1, dev, h,
-                                     want_value=want_value)
+        o = check_same(
+            f"K4 {label} want_value={want_value}",
+            lambda impl: tk.tsc_gather_grads_slab(
+                cot, pos, g, n1, dev, h, want_value=want_value, impl=impl))
         sync(pos.device)
         r = tk.tsc_gather_grads_slab_plain(cot, pos, g, n1, dev, h,
                                            want_value=want_value)
         errs[f"K4 value={want_value}"] = compare(
             f"K4 {label} want_value={want_value}", o, r, TOL_GATHER_REL)
+    errs["K4 outside"] = print_taps_outside_box(
+        f"K4 {label}", cot, pos, g, h, (8, 8), slab=(n1, dev))
     return errs
 
 
@@ -879,9 +929,13 @@ def phase_slab_kernels(dev, inputs, inputs256):
                 .contiguous()))
             rows = torch.remainder(torch.arange(-h1, n1 + h1, device=dev)
                                    + k * n1, g1.N1)
-            grads.append(tk.tsc_gather_grads_slab(
-                cot1.index_select(-3, rows).contiguous(), p, g1, n1, k, h1,
-                want_value=False))
+            ext = cot1.index_select(-3, rows).contiguous()
+            outs = {want_value: check_same(
+                f"K4 slab {k} of {D} at {g1.N1}^3 want_value={want_value}",
+                lambda impl: tk.tsc_gather_grads_slab(
+                    ext, p, g1, n1, k, h1, block, want_value, impl=impl))
+                for want_value in (False, True)}
+            grads.append(outs[False])
         compare(f"K3 {D} slabs of {g1.N1}^3 folded vs K1", fold_slabs(
             exts, g1, n1, h1), rho, TOL_DEP_REL)
         compare(f"K4 {D} slabs of {g1.N1}^3 vs K2 (contract-keeping "
@@ -945,9 +999,8 @@ TILED_SRC = "barcode_tpu_torch/csrc/tsc_deposit_tiled.cu"
 DEP_REP = "barcode_tpu/forward/pallas_deposit.py:789"
 STREAM_REP = "barcode_tpu/forward/pallas_deposit.py:274"
 SLAB_REP = "barcode_tpu/forward/pallas_deposit.py:675"
-GAT_SRC = "barcode_tpu_torch/csrc/tsc_gather.cu"
+GAT_SRC = "barcode_tpu_torch/csrc/tsc_gather_tiled.cu"
 GAT_REP = "barcode_tpu/forward/pallas_deposit.py:530"
-SLAB_GAT_SRC = "barcode_tpu_torch/csrc/tsc_gather_slab.cu"
 SLAB_GAT_REP = "barcode_tpu/forward/pallas_deposit.py:744"
 
 
@@ -997,10 +1050,20 @@ def slab_group(label, g, pos, n1, h, w, err, launches, note):
              "witness: the earlier K3")])
 
 
-def gather_group(key, name, fn, plain, nbytes, ops, err, src, rep, launches,
+def gather_group(key, name, gather, plain, nbytes, ops, err, slab, launches,
                  note):
-    return dict(plain=plain, nbytes=nbytes, ops=ops, err=err,
-                rows=[(key, name, fn, src, rep, launches, note)])
+    """Timing rows of one gather input: K2 or K4 (`slab`) through the tiled
+    kernel and, on the same inputs, its thread witness (the same bits, so
+    the same error; 0 launches on every path).  `gather(impl)` runs it."""
+    rep, witness = (SLAB_GAT_REP, "tsc_gather_slab.cu") if slab else \
+        (GAT_REP, "tsc_gather.cu")
+    k = "K4" if slab else "K2"
+    return dict(plain=plain, nbytes=nbytes, ops=ops, err=err, rows=[
+        (key, name, lambda: gather("tiled"), GAT_SRC, rep, launches, note),
+        (f"{key} thread", name.replace("grads_window", "grads_window_thread")
+         .replace("grads_slab", "grads_slab_thread"),
+         lambda: gather("thread"), f"barcode_tpu_torch/csrc/{witness}", rep,
+         0, f"witness: the earlier {k}")])
 
 
 def slab_groups(slab, slab_errs, launches_sh):
@@ -1020,13 +1083,13 @@ def slab_groups(slab, slab_errs, launches_sh):
                    "the path weights every K3 call (tail split)"),
         gather_group(
             "K4", "tsc_gather_grads_slab",
-            lambda: tk.tsc_gather_grads_slab(cot, pos, g, n1, 0, h,
-                                             want_value=False),
+            lambda impl: tk.tsc_gather_grads_slab(cot, pos, g, n1, 0, h,
+                                                  want_value=False, impl=impl),
             lambda: tk.tsc_gather_grads_slab_plain(cot, pos, g, n1, 0, h,
                                                    want_value=False),
             4 * n_ext + g.N * (12 + 12), g.N * OPS_K4,
-            slab_errs["K4 value=False weighted"], SLAB_GAT_SRC, SLAB_GAT_REP,
-            launches_sh["K4"], note)]
+            slab_errs["K4 value=False weighted"], True, launches_sh["K4"],
+            note)]
     # slab 0 of 2 at 256^3
     m1 = n1 // 2
     p2 = pos[:, :, :m1].contiguous()
@@ -1040,12 +1103,12 @@ def slab_groups(slab, slab_errs, launches_sh):
                    0, two),
         gather_group(
             "K4@2slabs", f"tsc_gather_grads_slab ({N_BIG}^3, slab 0 of 2)",
-            lambda: tk.tsc_gather_grads_slab(cot2, p2, g, m1, 0, h,
-                                             want_value=False),
+            lambda impl: tk.tsc_gather_grads_slab(cot2, p2, g, m1, 0, h,
+                                                  want_value=False, impl=impl),
             lambda: tk.tsc_gather_grads_slab_plain(cot2, p2, g, m1, 0, h,
                                                    want_value=False),
             4 * m_ext + m_part * 24, m_part * OPS_K4, e3["K4 value=False"],
-            SLAB_GAT_SRC, SLAB_GAT_REP, 0, two)]
+            True, 0, two)]
     return groups
 
 
@@ -1071,19 +1134,24 @@ def phase_timing(inputs, errs, launches, per_attempt, inputs256, errs256,
           f"{blockp}")
     errp = check_witnesses(f"{gp.N1}^3 path positions weighted", gp, posp,
                            halop, blockp, okp)
+    gblockp, n_partp = path256["block"], posp.shape[0] * gp.N
+    cotp = torch.randn(posp.shape[:1] + gp.shape, device=posp.device,
+                       generator=torch.Generator(device=posp.device)
+                       .manual_seed(29))
+    errp2 = check_gather(cotp, posp, gp, halop, gblockp,
+                         f" {gp.N1}^3 path positions")
     note256 = f"{N_BIG}^3 command-line path, 8 per attempt"
     groups = [
         deposit_group("", g, pos, halo, block_dep, ok, errs["K1 weighted"],
                       launches["K1"], f"{per_attempt['K1']} per attempt"),
         gather_group(
             "K2", "tsc_gather_grads_window",
-            lambda: tk.tsc_gather_grads_window(cot, pos, g, halo, block,
-                                               False),
+            lambda impl: tk.tsc_gather_grads_window(cot, pos, g, halo, block,
+                                                    False, impl=impl),
             lambda: tk.tsc_gather_grads_window_plain(cot, pos, g, halo, block,
                                                      False),
             n_part * (4 + 12 + 12), n_part * OPS_K2, errs["K2 value=False"],
-            GAT_SRC, GAT_REP, launches["K2"],
-            f"{per_attempt['K2']} per attempt"),
+            False, launches["K2"], f"{per_attempt['K2']} per attempt"),
         deposit_group(f" ({N_BIG}^3)", g2, pos2, halo2, block2, ok2,
                       errs256["weighted"], launches256["K1"],
                       note256 + "; the truth's positions"),
@@ -1092,13 +1160,23 @@ def phase_timing(inputs, errs, launches, per_attempt, inputs256, errs256,
                       note256 + "; the chains after the session"),
         gather_group(
             "K2@256", f"tsc_gather_grads_window ({N_BIG}^3)",
-            lambda: tk.tsc_gather_grads_window(cot2, pos2, g2, halo2, gblock2,
-                                               False),
+            lambda impl: tk.tsc_gather_grads_window(cot2, pos2, g2, halo2,
+                                                    gblock2, False, impl=impl),
             lambda: tk.tsc_gather_grads_window_plain(cot2, pos2, g2, halo2,
                                                      gblock2, False),
             n_part2 * (4 + 12 + 12), n_part2 * OPS_K2,
-            errs256["K2 value=False"], GAT_SRC, GAT_REP, launches256["K2"],
-            note256),
+            errs256["K2 value=False"], False, launches256["K2"],
+            note256 + "; the truth's positions"),
+        gather_group(
+            "K2@256 path", f"tsc_gather_grads_window ({N_BIG}^3, path "
+            "positions)",
+            lambda impl: tk.tsc_gather_grads_window(cotp, posp, gp, halop,
+                                                    gblockp, False, impl=impl),
+            lambda: tk.tsc_gather_grads_window_plain(cotp, posp, gp, halop,
+                                                     gblockp, False),
+            n_partp * (4 + 12 + 12), n_partp * OPS_K2, errp2["K2 value=False"],
+            False, launches256["K2"],
+            note256 + "; the chains after the session"),
         *slab_groups(slab, slab_errs, launches_sh)]
     rows = []
     for grp in groups:
@@ -1122,9 +1200,11 @@ def phase_timing(inputs, errs, launches, per_attempt, inputs256, errs256,
 
 
 def phase_build_checks(info):
-    """The tiled kernel's shared-memory atomics in its SASS, what a 64-bit
-    shared-memory add compiles to on sm_90a, and the tiled kernel's
-    resident blocks per SM (the plan's two, so that the box cap holds)."""
+    """The tiled deposit's shared-memory atomics in its SASS, what a 64-bit
+    shared-memory add compiles to on sm_90a, and the tiled deposit's
+    resident blocks per SM (the plan's two, so that the box cap holds); the
+    tiled gather's registers and spills (`-Xptxas -v`) and resident blocks
+    per SM (at least the plan's)."""
     lib, _ = cuda_build.load()
     sass = cuda_build.sass(info.path, "tsc_deposit_tiled_kernel")
     ops = collections.Counter(tok for line in sass.splitlines()
@@ -1148,6 +1228,25 @@ def phase_build_checks(info):
     if any(n != plan.blocks_per_sm for n in blocks.values()):
         raise RuntimeError(f"the tiled kernel fits {blocks} blocks per SM, "
                            f"not {plan.blocks_per_sm}")
+    gplan = tk.gather_plan(N_BIG, N_BIG, N_BIG, N_CHAINS)
+    regs = {name: v for name, v in cuda_build.ptxas_functions(
+        info.ptxas).items() if "tsc_gather_tiled_kernel" in name}
+    gblocks = {geom: lib.tsc_gather_tiled_blocks_per_sm(gplan.box_cells, slab)
+               for geom, slab in (("dense", 0), ("slab", 1))}
+    for name, v in regs.items():
+        geom = "slab" if "SlabX" in name else "dense"
+        print(f"  tiled gather ({geom}): {v['registers']} registers, "
+              f"{v['stack']} bytes stack frame, {v['spill_stores']} bytes "
+              f"spill stores, {v['spill_loads']} bytes spill loads")
+    print(f"  tiled gather: {gplan.threads} threads, box {gplan.box_cells} "
+          f"cells, {gplan.smem_bytes} B of shared memory, resident blocks per "
+          f"SM {gblocks} (planned {gplan.blocks_per_sm})")
+    if len(regs) != 2 or any(v["spill_stores"] or v["spill_loads"]
+                             for v in regs.values()):
+        raise RuntimeError(f"the tiled gather spills: {regs}")
+    if any(n < gplan.blocks_per_sm for n in gblocks.values()):
+        raise RuntimeError(f"the tiled gather fits {gblocks} blocks per SM, "
+                           f"fewer than {gplan.blocks_per_sm}")
 
 
 def rank_worker(tmp: str, device_type: str):

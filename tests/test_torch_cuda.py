@@ -12,7 +12,10 @@ the plain versions in float32); the window decisions are integer
 arithmetic and must agree exactly.  Gradients through the deposit:
 3e-5 * max|grad|.  The tiled deposit (csrc/tsc_deposit_tiled.cu) and the
 witnesses it replaced on every path (`impl="push"`, `impl="pull"`) sum the
-same integers, so they are held equal bit for bit (`torch.equal`).
+same integers, and the tiled gather (csrc/tsc_gather_tiled.cu) and its
+witnesses (`impl="thread"`) compile the same per-particle arithmetic, so
+they are held equal bit for bit (`torch.equal`; NaN where the witness has
+NaN).
 """
 import numpy as np
 import pytest
@@ -277,6 +280,108 @@ def test_cuda_tiled_deposit_equals_witnesses(cuda, case, weighted):
                                                           weights=w))
 
 
+def non_finite_and_huge(pos, g):
+    """A few particles of each chain at NaN, +-inf and huge positions (some
+    beyond the int range of a base cell, some within it but far outside
+    the box)."""
+    out = pos.clone()
+    vals = [float("nan"), float("inf"), -float("inf"), 1e30, -1e30, 3e9, -3e9,
+            1e8, -1e8, 2.1e9]
+    for i, v in enumerate(vals):
+        out[0, i % 3, (5 + i) % g.N1, 7 % g.N2, (9 + 2 * i) % g.N3] = v
+        out[1, (i + 1) % 3, (40 - i) % g.N1, (3 * i) % g.N2, 11 % g.N3] = v
+    return out.contiguous()
+
+
+def assert_same_bits(a, b):
+    """Equal bit for bit, NaN where the other has NaN."""
+    torch.testing.assert_close(a, b, rtol=0, atol=0, equal_nan=True)
+
+
+def gather_counts():
+    return {"tiled": tk.tsc_gather_grads_window.launches,
+            "thread": tk.tsc_gather_grads_window_thread.launches,
+            "slab": tk.tsc_gather_grads_slab.launches,
+            "slab thread": tk.tsc_gather_grads_slab_thread.launches}
+
+
+G48 = GridSpec.cube(48, 75.0)
+GATHER_CASES = {
+    # (grid, halo, block, violators, how the positions are changed)
+    "violators": (G, 3, (8, 8), 200, None),
+    "halo_pair": (G, (3, 2), (8, 16), 150, None),
+    "non_pow2_block_ragged": (G48, 3, (12, 24), 300, None),
+    "headline_128": (G128, 6, (8, 8), 0, None),
+    "collapsed_chain": (G128, 3, (8, 8), 500, "collapsed"),
+    "far_flung": (G128, 64, (8, 8), 0, "far_flung"),
+    "non_finite_and_huge": (G48, 3, (12, 24), 100, "bad"),
+    # the kernel's 4-byte copies: N3 not a multiple of its 16-cell tiles
+    # (ragged in z), and a field that is not 16-byte aligned
+    "ragged_z_24": (GridSpec.cube(24, 37.5), 3, (8, 8), 80, None),
+    "unaligned_field": (G, 3, (8, 8), 200, "unaligned"),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("want_value", [False, True])
+@pytest.mark.parametrize("case", sorted(GATHER_CASES))
+def test_cuda_tiled_gather_equals_witness(cuda, case, want_value):
+    """K2 through the tiled gather, on inputs that strain its design — a
+    collapsed chain (boxes at their cap), particles flung half a box away
+    and non-finite or huge positions (stencils outside every box), a
+    block that is not a power of two over ragged tiles, and the 4-byte
+    copies of a grid ragged in z or an unaligned field — equal bit for bit
+    to the thread witness (the earlier K2) and to itself from call to
+    call."""
+    g, halo, block, n_viol, how = GATHER_CASES[case]
+    pos = positions(12, n_viol, g=g).to(cuda)
+    if how == "collapsed":
+        pos = collapsed(pos, g, chain=0)
+    elif how == "far_flung":
+        pos = far_flung(pos, g)
+    elif how == "bad":
+        pos = non_finite_and_huge(pos, g)
+    field = torch.randn(2 * g.N + 1, device=cuda,
+                        generator=torch.Generator(device=cuda).manual_seed(1))
+    field = field[1:] if how == "unaligned" else field[:-1]
+    field = field.view((2,) + g.shape)
+    n0 = gather_counts()
+    outs = [tk.tsc_gather_grads_window(field, pos, g, halo, block, want_value,
+                                       impl=impl)
+            for impl in ("tiled", "tiled", "thread")]
+    torch.cuda.synchronize()
+    assert gather_counts() == dict(n0, tiled=n0["tiled"] + 2,
+                                   thread=n0["thread"] + 1)
+    assert_same_bits(outs[0], outs[1])
+    assert_same_bits(outs[0], outs[2])
+    if how in (None, "unaligned"):
+        assert (outs[0] - tk.tsc_gather_grads_window_plain(
+            field, pos, g, halo, block, want_value)).abs().max().item() <= \
+            3e-5 * max(1.0, outs[2].abs().max().item())
+
+
+@pytest.mark.gpu
+def test_cuda_tiled_gather_counts_taps_outside_the_box(cuda):
+    """Where every tile's particles stay within about a cell of their
+    lattice sites, each tile's box holds all their stencils; particles
+    flung half a box away read device memory."""
+    g = G128
+    d = torch.tensor(g.cell).reshape(3, 1, 1, 1)
+    idx = torch.stack(torch.meshgrid(*[torch.arange(n) for n in g.shape],
+                                     indexing="ij"))
+    gen = torch.Generator().manual_seed(14)
+    pos = (idx + 0.5) * d + 0.3 * d * torch.randn((2, 3) + g.shape,
+                                                    generator=gen)
+    L = torch.tensor([g.L1, g.L2, g.L3]).reshape(3, 1, 1, 1)
+    pos = torch.remainder(pos, L).contiguous().to(cuda)
+    field = torch.randn((2,) + g.shape, device=cuda)
+    outside, total = tk.gather_taps_outside_box(field, pos, g, 6, (8, 8))
+    assert outside == 0 and total > 0
+    outside, total = tk.gather_taps_outside_box(field, far_flung(pos, g), g,
+                                                64, (8, 8))
+    assert 0 < outside < total
+
+
 @pytest.mark.gpu
 def test_cuda_windowless_deposits_are_deterministic(cuda):
     """assign.tsc_deposit (128^3, 2 chains) and the tail-split deposit with
@@ -345,6 +450,52 @@ def test_cuda_slab_kernels_match_plain(cuda, case, weighted):
         assert tk.tsc_gather_grads_slab.launches == n4 + 2
 
 
+def slab_edges(pos, g, n1, dev, h):
+    """The slab's first and last rows of particles moved (h - 1.5) cells
+    outwards in x: their taps reach the extended buffer's first and last
+    rows."""
+    d = g.cell[0]
+    out = pos.clone()
+    out[:, 0, 0] -= (h - 1.5) * d
+    out[:, 0, n1 - 1] += (h - 1.5) * d
+    return torch.remainder(out, g.L1 * torch.tensor(
+        [1.0, g.L2 / g.L1, g.L3 / g.L1], device=pos.device).reshape(
+            3, 1, 1, 1)).contiguous()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("want_value", [False, True])
+@pytest.mark.parametrize("how", [None, "edges", "bad"])
+@pytest.mark.parametrize("case", sorted(SLAB_CASES))
+def test_cuda_tiled_slab_gather_equals_witness(cuda, case, how, want_value):
+    """K4 through the tiled gather on every slab of 32^3 with contract
+    violators, with the slab's edge rows pushed into the extended buffer's
+    first and last rows, and with non-finite or huge positions: equal bit
+    for bit to the thread witness (the earlier K4) and to itself."""
+    D, h = SLAB_CASES[case]
+    n1 = G.N1 // D
+    pos = positions(13, 200).to(cuda)
+    if how == "bad":
+        pos = non_finite_and_huge(pos, G)
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    for k in range(D):
+        p = pos[:, :, k * n1:(k + 1) * n1].contiguous()
+        if how == "edges":
+            p = slab_edges(p, G, n1, k, h)
+        field = torch.randn((2, n1 + 2 * h) + G.shape[1:], device=cuda,
+                            generator=gen)
+        n0 = gather_counts()
+        outs = [tk.tsc_gather_grads_slab(field, p, G, n1, k, h,
+                                         want_value=want_value, impl=impl)
+                for impl in ("tiled", "tiled", "thread")]
+        torch.cuda.synchronize()
+        assert gather_counts() == dict(n0, slab=n0["slab"] + 2,
+                                       **{"slab thread": n0["slab thread"]
+                                          + 1})
+        assert_same_bits(outs[0], outs[1])
+        assert_same_bits(outs[0], outs[2])
+
+
 @pytest.mark.gpu
 def test_cuda_measure_spectrum_is_deterministic(cuda):
     """The binned spectrum sums each bin in a fixed order: 128^3, two calls,
@@ -388,7 +539,8 @@ def test_cuda_runner_goes_through_the_kernels(cuda, tmp_path):
                      readPS=False)
     tk.tsc_deposit_window.launches = tk.tsc_gather_grads_window.launches = 0
     witnesses = (tk.tsc_deposit_window_push, tk.tsc_deposit_window_stream,
-                 tk.tsc_deposit_slab_push)
+                 tk.tsc_deposit_slab_push, tk.tsc_gather_grads_window_thread,
+                 tk.tsc_gather_grads_slab_thread)
     for f in witnesses:
         f.launches = 0
     r = Runner(conf, out_dir=str(tmp_path), device=cuda)
