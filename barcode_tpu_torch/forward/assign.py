@@ -1,27 +1,33 @@
-"""Mass assignment on the main path: TSC deposits, the halo-tail split and
-the sph_ft Fourier kernel.
+"""Mass assignment: the NGP, CIC, TSC and SPH deposits, their gathers, the
+halo-tail split and the sph_ft Fourier kernel.
 
-Port of barcode_tpu/forward/assign.py (main-path subset).  Two TSC deposits
-live here and must not be confused:
+Port of barcode_tpu/forward/assign.py.  Two kinds of deposit live here:
 
-  * `tsc_deposit` — the plain windowless 27-point scatter, the XLA-tier
-    deposit of the JAX package (assign.py:174).  The mock data and the
-    mass-2/3 likelihood force use it; the tail particles use its 27-tap
-    arithmetic.  Both sum in 64-bit fixed point (`_exact_scatter`), so they
-    are bit-identical from call to call on every device, as the JAX
-    deposit is: a float `index_add_` on a CUDA tensor sums with atomics in
-    an order that changes from run to run.
-  * `make_tsc_deposit_fast` — the sampler's deposit: a
+  * the windowless stencil deposits of the XLA tier (assign.py:43-221,
+    :523-578): `ngp_deposit`, `cic_deposit`, `tsc_deposit`, `sph_deposit`
+    and `sph_ft_deposit`, dispatched by `deposit`, and the gathers
+    `cic_gather`, `tsc_gather` and `tsc_weight_grad_gather`.  Stencil
+    offset k is one scatter at the wrapped base cell + offset k (index
+    arithmetic with `remainder`; the TPU's roll trick is not needed).
+    Every scatter sums in 64-bit fixed point (`_exact_scatter`), so a
+    deposit has the same bits on every call and every device, as the JAX
+    deposits do: a float `index_add_` on a CUDA tensor sums with atomics
+    in an order that changes from run to run.  The SPH deposit is a
+    `torch.autograd.Function` that keeps only its inputs and recomputes
+    each offset's W4 slope in its backward.  The mock data, the mass-2/3
+    likelihood force and every sampler deposit but the kernel one use
+    these; the tail particles use the TSC deposit's 27-tap arithmetic.
+  * `make_tsc_deposit_fast` — the sampler's kernel deposit: a
     `torch.autograd.Function` whose forward is kernel K1
     (`tsc_kernels.tsc_deposit_window`) and whose backward is kernel K2
     (`tsc_kernels.tsc_gather_grads_window`), with the optional halo-tail
     split (assign.py:441-516).
 
-Positions are (3,) + grid or (C, 3) + grid for C chains.  The slab
-variants of the tail split (`_slab_halo_excess`, `_tail_deposit_slab`,
+Positions are (3,) + grid or (C, 3) + grid for C chains.  They may lie
+outside the box (radial RSD does not wrap them): the base cells wrap.  The
+slab variants of the tail split (`_slab_halo_excess`, `_tail_deposit_slab`,
 `_tail_weight_grad_slab`, assign.py:355-449) serve the sharded deposit
-(parallel/sharded_forward).  NGP/CIC/SPH deposits wait for a later slice
-(ROADMAP A.1).
+(parallel/sharded_forward).
 """
 from __future__ import annotations
 
@@ -40,7 +46,7 @@ _TSC_OFFSETS = [(i, j, k) for i in _OFFSETS for j in _OFFSETS for k in _OFFSETS]
 
 
 # ---------------------------------------------------------------------------
-# TSC weights and the windowless deposit (assign.py:149-187)
+# TSC weights (assign.py:149-180)
 # ---------------------------------------------------------------------------
 
 def _tsc_axis_weight(dx, s):
@@ -67,8 +73,7 @@ def _tsc_base_frac(pos, g: GridSpec):
     """Wrapped base cells (int64, (..., 3) + grid) and fractions."""
     u = pos / _cell(g, pos, 3)
     base = torch.floor(u)
-    n = torch.tensor(g.shape, device=pos.device).reshape(3, 1, 1, 1)
-    return torch.remainder(base.long(), n), u - base - 0.5
+    return _wrap_base(base.long(), g), u - base - 0.5
 
 
 def _tsc_weights(dx):
@@ -76,6 +81,10 @@ def _tsc_weights(dx):
          for a in range(3)]
     return [w[0][ox] * w[1][oy] * w[2][oz] for ox, oy, oz in _TSC_OFFSETS]
 
+
+# ---------------------------------------------------------------------------
+# The exact scatter and the stencil helpers (assign.py:43-90)
+# ---------------------------------------------------------------------------
 
 def _batch_flat_offsets(batch: tuple, n: int, device, ndim: int):
     """Flat offset of each batch element into a flattened batch + (n,),
@@ -86,29 +95,34 @@ def _batch_flat_offsets(batch: tuple, n: int, device, ndim: int):
         batch + (1,) * ndim)
 
 
-class _ExactScatter(torch.autograd.Function):
-    """out[idx_k] += src_k over k, summed in 64-bit fixed point.
+def _fixed_point_sum(index, n_out: int, scale, srcs, dtype):
+    """Sum the flat contributions `srcs` (any iterable: srcs[k] goes to the
+    cells index(k)) in 64-bit fixed point.  Each is rounded to a multiple
+    of 1/scale and added with an integer `index_add_`, whose result does
+    not depend on the order.  A cell that receives a non-finite
+    contribution reads NaN."""
+    acc = torch.zeros(n_out, dtype=torch.int64, device=scale.device)
+    n_bad = torch.zeros(n_out, dtype=torch.int32, device=scale.device)
+    for k, src in enumerate(srcs):
+        idx = index(k)
+        finite = torch.isfinite(src)
+        fixed = torch.round(torch.where(finite, src, 0.0).double() * scale)
+        acc.index_add_(0, idx, fixed.long())
+        n_bad.index_add_(0, idx, (~finite).int())
+    out = (acc.double() / scale).to(dtype)
+    return out.masked_fill_(n_bad > 0, float("nan"))
 
-    Each contribution is rounded to a multiple of 1/scale (K1's rule,
-    `tsc_kernels._fixed_point_scale`) and added with an integer
-    `index_add_`.  Integer addition does not depend on the order, so the
-    result is bit-identical on every call and every device.  A cell that
-    receives a non-finite contribution reads NaN.  The backward is the
-    gather of the cotangent at each contribution's cell."""
+
+class _ExactScatter(torch.autograd.Function):
+    """out[idx_k] += src_k over k, summed in 64-bit fixed point
+    (`_fixed_point_sum` at K1's scale, `tsc_kernels._fixed_point_scale`),
+    so the result is bit-identical on every call and every device.  The
+    backward is the gather of the cotangent at each contribution's cell."""
 
     @staticmethod
     def forward(ctx, index, n_out: int, scale, *srcs):
-        acc = torch.zeros(n_out, dtype=torch.int64, device=scale.device)
-        n_bad = torch.zeros(n_out, dtype=torch.int32, device=scale.device)
-        for k, src in enumerate(srcs):
-            idx = index(k)
-            finite = torch.isfinite(src)
-            fixed = torch.round(torch.where(finite, src, 0.0).double() * scale)
-            acc.index_add_(0, idx, fixed.long())
-            n_bad.index_add_(0, idx, (~finite).int())
         ctx.index = index
-        out = (acc.double() / scale).to(srcs[0].dtype)
-        return out.masked_fill_(n_bad > 0, float("nan"))
+        return _fixed_point_sum(index, n_out, scale, srcs, srcs[0].dtype)
 
     @staticmethod
     def backward(ctx, cot):
@@ -116,7 +130,7 @@ class _ExactScatter(torch.autograd.Function):
             cot[ctx.index(k)] for k in range(len(ctx.needs_input_grad) - 3))
 
 
-def _exact_scatter(index, n_out: int, srcs, max_sum_per_weight: int,
+def _exact_scatter(index, n_out: int, srcs, max_sum_per_weight: float,
                    weights=None):
     """Deterministic sum of the flat contributions `srcs` into n_out cells;
     `index(k)` gives the flat cells of srcs[k].  No cell's sum exceeds
@@ -126,30 +140,156 @@ def _exact_scatter(index, n_out: int, srcs, max_sum_per_weight: int,
     return _ExactScatter.apply(index, n_out, scale, *srcs)
 
 
-def tsc_deposit(pos, g: GridSpec, weights=None):
-    """Windowless 27-point TSC deposit (getDensity_TSC), one scatter per
-    stencil offset, summed exactly (`_exact_scatter`); differentiable
-    through the positions and the weights."""
-    base, dx = _tsc_base_frac(pos, g)
-    ws = _tsc_weights(dx)
-    if weights is not None:
-        ws = [w * weights for w in ws]
-    batch = tuple(pos.shape[:-4])
-    c0 = _batch_flat_offsets(batch, g.N, pos.device, 3)
+def _wrap_base(base, g: GridSpec):
+    """Base cells (int64, (..., 3) + particle shape) wrapped into the grid."""
+    n = torch.tensor(g.shape, device=base.device).reshape(3, 1, 1, 1)
+    return torch.remainder(base, n)
+
+
+def _stencil_index(base, offsets, g: GridSpec):
+    """index(k): the flat cells (batch elements laid end to end) that
+    offset k of every particle reaches from its wrapped base cell."""
+    c0 = _batch_flat_offsets(tuple(base.shape[:-4]), g.N, base.device, 3)
     bx, by, bz = base.unbind(-4)
 
     def index(k):
-        ox, oy, oz = _TSC_OFFSETS[k]
+        ox, oy, oz = offsets[k]
         ix = torch.remainder(bx + ox, g.N1)
         iy = torch.remainder(by + oy, g.N2)
         iz = torch.remainder(bz + oz, g.N3)
         return (c0 + (ix * g.N2 + iy) * g.N3 + iz).reshape(-1)
 
-    # each particle's 27 TSC weights sum to 1: a cell's total is at most
-    # g.N * max|weight|
-    out = _exact_scatter(index, math.prod(batch) * g.N,
-                         [w.reshape(-1) for w in ws], g.N, weights)
-    return out.reshape(batch + g.shape)
+    return index
+
+
+def _n_particles(x) -> int:
+    """Particles per chain of a position or particle-shaped tensor."""
+    return math.prod(x.shape[-3:])
+
+
+def _stencil_deposit(base, channel_weights, offsets, g: GridSpec,
+                     max_sum_per_weight: float, weights=None):
+    """sum over k of channel_weights[k] scattered at base + offsets[k],
+    summed exactly (`_exact_scatter`), differentiable through the channel
+    weights.  max_sum_per_weight bounds one cell's sum per unit of
+    max|weights|."""
+    shape = base.shape[:-4] + base.shape[-3:]
+    out = _exact_scatter(_stencil_index(base, offsets, g),
+                         math.prod(base.shape[:-4]) * g.N,
+                         [w.expand(shape).reshape(-1) for w in channel_weights],
+                         max_sum_per_weight, weights)
+    return out.reshape(base.shape[:-4] + g.shape)
+
+
+def _stencil_gather_multi(field, base, weight_sets, offsets, g: GridSpec):
+    """out_m(p) = sum_k weight_sets[m][k](p) * field(base_p + offsets[k])
+    for each weight set m, the K cells gathered once.  The particles need
+    not be laid out like the grid; `field` is grid-shaped per batch element
+    of `base` (or one grid for all)."""
+    batch = tuple(base.shape[:-4])
+    flat = field.expand(batch + g.shape).reshape(-1)
+    index = _stencil_index(base, offsets, g)
+    picked = [flat[index(k)].reshape(batch + base.shape[-3:])
+              for k in range(len(offsets))]
+    return [sum(w * p for w, p in zip(ws, picked)) for ws in weight_sets]
+
+
+def _stencil_gather(field, base, channel_weights, offsets, g: GridSpec):
+    """Mirror of _stencil_deposit: out(p) = sum_k w_k(p) field(base_p + o_k)."""
+    return _stencil_gather_multi(field, base, [channel_weights], offsets, g)[0]
+
+
+# ---------------------------------------------------------------------------
+# NGP, CIC and TSC (assign.py:92-219)
+# ---------------------------------------------------------------------------
+
+def ngp_deposit(pos, g: GridSpec, weights=None):
+    """Nearest grid point (getDensity_NGP, massFunctions.cc:49-98)."""
+    base = _wrap_base(torch.floor(pos / _cell(g, pos, 3)).long(), g)
+    w = torch.ones((), dtype=pos.dtype, device=pos.device) \
+        if weights is None else weights
+    return _stencil_deposit(base, [w], [(0, 0, 0)], g, _n_particles(pos),
+                            weights)
+
+
+_CIC_OFFSETS = [(i, j, k) for i in (0, 1) for j in (0, 1) for k in (0, 1)]
+
+
+def _cic_base_frac(pos, g: GridSpec):
+    """Cell convention of getCICcells: base = floor(x/d - 1/2)
+    (interpolate_grid.cpp:27-79)."""
+    v = pos / _cell(g, pos, 3) - 0.5
+    base = torch.floor(v)
+    return _wrap_base(base.long(), g), v - base
+
+
+def _cic_weights(frac):
+    f = frac.unbind(-4)
+    out = []
+    for off in _CIC_OFFSETS:
+        w = 1.0
+        for a in range(3):
+            w = w * (1.0 - f[a] if off[a] == 0 else f[a])
+        out.append(w)
+    return out
+
+
+def cic_deposit(pos, g: GridSpec, weights=None):
+    """Cloud-in-cell, 8-point (getDensity_CIC, massFunctions.cc:100-164)."""
+    base, frac = _cic_base_frac(pos, g)
+    ws = _cic_weights(frac)
+    if weights is not None:
+        ws = [w * weights for w in ws]
+    # each particle's 8 weights sum to 1
+    return _stencil_deposit(base, ws, _CIC_OFFSETS, g, _n_particles(pos),
+                            weights)
+
+
+def cic_gather(field, pos, g: GridSpec):
+    """CIC interpolation of a grid field at particle positions
+    (interpolate_CIC, interpolate_grid.cpp:82-120)."""
+    base, frac = _cic_base_frac(pos, g)
+    return _stencil_gather(field, base, _cic_weights(frac), _CIC_OFFSETS, g)
+
+
+def tsc_deposit(pos, g: GridSpec, weights=None):
+    """Windowless 27-point TSC deposit (getDensity_TSC,
+    massFunctions.cc:167-364), differentiable through the positions and the
+    weights."""
+    base, dx = _tsc_base_frac(pos, g)
+    ws = _tsc_weights(dx)
+    if weights is not None:
+        ws = [w * weights for w in ws]
+    # each particle's 27 TSC weights sum to 1
+    return _stencil_deposit(base, ws, _TSC_OFFSETS, g, _n_particles(pos),
+                            weights)
+
+
+def tsc_gather(field, pos, g: GridSpec):
+    """TSC interpolation at particle positions (interpolate_TSC,
+    interpolate_grid.cpp:134-202, with the wx[2]/wy[2] dz bug fixed)."""
+    base, dx = _tsc_base_frac(pos, g)
+    return _stencil_gather(field, base, _tsc_weights(dx), _TSC_OFFSETS, g)
+
+
+def tsc_weight_grad_gather(cot, pos, g: GridSpec):
+    """V_i(p) = sum_o d(w_o)/d(pos_i) * cot(base_p + o), stacked on the
+    component axis -4: the position-adjoint of the TSC deposit, its 27
+    cells gathered once for the three derivative weight sets."""
+    base, dx = _tsc_base_frac(pos, g)
+    f = dx.unbind(-4)
+    weight_sets = []
+    for i in range(3):
+        ws = []
+        for off in _TSC_OFFSETS:
+            w = 1.0
+            for a in range(3):
+                w = w * (_tsc_axis_dweight(f[a], off[a], g.cell[a]) if a == i
+                         else _tsc_axis_weight(f[a], off[a]))
+            ws.append(w)
+        weight_sets.append(ws)
+    return torch.stack(_stencil_gather_multi(cot, base, weight_sets,
+                                             _TSC_OFFSETS, g), dim=-4)
 
 
 def auto_block_dep(g: GridSpec, halo, block: tuple) -> tuple:
@@ -385,6 +525,150 @@ def make_tsc_deposit_fast(g: GridSpec, halo: int = 8, block: tuple = (8, 8),
 
 
 # ---------------------------------------------------------------------------
+# SPH: the Monaghan W4 cubic spline, kernel radius 2h (assign.py:519-578)
+# ---------------------------------------------------------------------------
+
+def w4(q):
+    """Monaghan W4 spline (unnormalized; callers apply the 1/(pi h^3) norm),
+    SPH_kernel_3D, massFunctions.cc:366-385."""
+    q = torch.abs(q)
+    inner = 1.0 - 1.5 * q * q + 0.75 * q * q * q
+    outer = 0.25 * torch.clamp(2.0 - q, min=0.0) ** 3
+    return torch.where(q <= 1.0, inner, torch.where(q <= 2.0, outer, 0.0))
+
+
+def _w4_slope(q):
+    """dW4/dq for q >= 0: -3q + 2.25q^2 inside, -0.75(2 - q)^2 out to 2."""
+    return torch.where(q <= 1.0, -3.0 * q + 2.25 * q * q,
+                       torch.where(q <= 2.0, -0.75 * (2.0 - q) ** 2, 0.0))
+
+
+def sph_stencil(g: GridSpec, h: float):
+    """The cell offsets within kernel reach 2h (+ a half-cell margin), as
+    SPH_kernel_3D_cells (SPH_kernel.cpp:62-102)."""
+    d1, d2, d3 = g.cell
+    reach = 2.0 * h
+    r1 = int(reach / d1) + 1
+    r2 = int(reach / d2) + 1
+    r3 = int(reach / d3) + 1
+    out = []
+    for i in range(-r1, r1 + 1):
+        for j in range(-r2, r2 + 1):
+            for k in range(-r3, r3 + 1):
+                dx = (abs(i) - 0.5) * d1
+                dy = (abs(j) - 0.5) * d2
+                dz = (abs(k) - 0.5) * d3
+                if dx * dx + dy * dy + dz * dz <= reach * reach:
+                    out.append((i, j, k))
+    return out
+
+
+def sph_max_sum_per_weight(g: GridSpec, h: float, n_part: int) -> float:
+    """Bound on one cell's SPH sum per unit of max|weight|: every particle
+    adds at most its largest tap, norm * W4(0), as often as its stencil
+    reaches that cell (more than once per axis where the stencil is wider
+    than the grid)."""
+    offsets = sph_stencil(g, h)
+    hits = 1
+    for a, n in enumerate(g.shape):
+        span = max(o[a] for o in offsets) - min(o[a] for o in offsets) + 1
+        hits *= -(-span // n)
+    return n_part * hits / (math.pi * h**3)
+
+
+def _sph_taps(pos, g: GridSpec, h: float):
+    """Wrapped base cells, the stencil, and a function of offset k giving
+    (diff, r2, r): the particle's distance from that offset's cell centre,
+    measured from its unwrapped base as in the JAX package."""
+    d = _cell(g, pos, 3)
+    base_f = torch.floor(pos / d)
+    offsets = sph_stencil(g, h)
+    # one host-to-device copy of the stencil, not one per offset
+    offs = torch.tensor(offsets, dtype=pos.dtype, device=pos.device)
+
+    def dist(k):
+        diff = pos - (base_f + offs[k].reshape(3, 1, 1, 1) + 0.5) * d
+        dx, dy, dz = diff.unbind(-4)
+        r2 = dx * dx + dy * dy + dz * dz
+        # sqrt's slope is undefined at 0, where W4's is 0: guard the branch
+        # (a particle sits exactly on a cell centre wherever it is not
+        # displaced)
+        pos_r2 = r2 > 0
+        r = torch.where(pos_r2, torch.sqrt(torch.where(pos_r2, r2, 1.0)), 0.0)
+        return diff, r2, r
+
+    return _wrap_base(base_f.long(), g), offsets, dist
+
+
+class _SPHDeposit(torch.autograd.Function):
+    """rho(c) = sum_p w_p W4(|x_p - x_c|/h)/(pi h^3) over the static
+    stencil, summed exactly (`_fixed_point_sum`).  Only the positions and
+    weights are kept: the backward recomputes each offset's distance and
+    W4 slope, gathers the cotangent at that offset's cell and accumulates
+    the position gradient (W4'(r/h)/h * diff/r * norm, 0 at r = 0 as the
+    JAX guard gives) and the weights' gradient (W4 * norm)."""
+
+    @staticmethod
+    def forward(ctx, pos, weights, g, h):
+        ctx.g, ctx.h = g, h
+        ctx.save_for_backward(pos, weights)
+        base, offsets, dist = _sph_taps(pos, g, h)
+        norm = 1.0 / (math.pi * h**3)
+        batch = tuple(pos.shape[:-4])
+        shape = batch + pos.shape[-3:]
+
+        def taps():
+            for k in range(len(offsets)):
+                w = w4(dist(k)[2] / h) * norm
+                if weights is not None:
+                    w = w * weights
+                yield w.expand(shape).reshape(-1)
+
+        scale = tk._fixed_point_scale(
+            weights, sph_max_sum_per_weight(g, h, _n_particles(pos)),
+            pos.device)
+        out = _fixed_point_sum(_stencil_index(base, offsets, g),
+                               math.prod(batch) * g.N, scale, taps(),
+                               pos.dtype)
+        return out.reshape(batch + g.shape)
+
+    @staticmethod
+    def backward(ctx, cot):
+        pos, weights = ctx.saved_tensors
+        g, h = ctx.g, ctx.h
+        need_pos, need_w = ctx.needs_input_grad[:2]
+        base, offsets, dist = _sph_taps(pos, g, h)
+        index = _stencil_index(base, offsets, g)
+        norm = 1.0 / (math.pi * h**3)
+        batch = tuple(pos.shape[:-4])
+        flat = cot.contiguous().reshape(-1)
+        g_pos = torch.zeros_like(pos) if need_pos else None
+        g_w = 0.0
+        for k in range(len(offsets)):
+            diff, r2, r = dist(k)
+            c = flat[index(k)].reshape(batch + pos.shape[-3:])
+            if need_pos:
+                slope = norm * _w4_slope(r / h) / h
+                coef = torch.where(r2 > 0, slope / torch.where(r2 > 0, r, 1.0),
+                                   0.0) * c
+                if weights is not None:
+                    coef = coef * weights
+                g_pos = g_pos + coef.unsqueeze(-4) * diff
+            if need_w:
+                g_w = g_w + norm * w4(r / h) * c
+        if need_w:
+            g_w = g_w.sum_to_size(weights.shape)
+        return g_pos, (g_w if need_w else None), None, None
+
+
+def sph_deposit(pos, g: GridSpec, h: float, weights=None):
+    """Exact SPH scatter rho(c) = sum_p m_p W4(|x_p - x_c|/h)/(pi h^3) over
+    the static stencil (getDensity_SPH, massFunctions.cc:391-495); no cell's
+    fixed-point sum can overflow (`sph_max_sum_per_weight`)."""
+    return _SPHDeposit.apply(pos, weights, g, float(h))
+
+
+# ---------------------------------------------------------------------------
 # sph_ft kernel and overdensity
 # ---------------------------------------------------------------------------
 
@@ -427,13 +711,19 @@ def sph_ft_deposit(pos, g: GridSpec, h: float, weights=None):
 
 
 def deposit(pos, g: GridSpec, masskernel, h: float = 0.0, weights=None):
-    """masskernel: 2/'tsc' or 'sph_ft' (the others wait for a later slice)."""
+    """masskernel: 0/'ngp', 1/'cic', 2/'tsc', 3/'sph' or 'sph_ft'."""
     mk = {0: "ngp", 1: "cic", 2: "tsc", 3: "sph"}.get(masskernel, masskernel)
+    if mk == "ngp":
+        return ngp_deposit(pos, g, weights)
+    if mk == "cic":
+        return cic_deposit(pos, g, weights)
     if mk == "tsc":
         return tsc_deposit(pos, g, weights)
+    if mk == "sph":
+        return sph_deposit(pos, g, h, weights)
     if mk == "sph_ft":
         return sph_ft_deposit(pos, g, h, weights)
-    raise NotImplementedError(f"masskernel {masskernel!r} is not ported yet")
+    raise ValueError(f"unknown masskernel {masskernel!r}")
 
 
 def overdens(rho):

@@ -1,14 +1,14 @@
 """The full forward model: Lagrangian density -> Eulerian density.
 
 Port of barcode_tpu/forward/lag2eul.py:23-127: delta_lag -> LPT
-displacement Psi -> particles q + Psi (periodic wrap) [-> plane-parallel
-RSD with Zel'dovich velocities] -> mass-assignment deposit -> overdensity.
-Differentiable end to end with torch autograd; the kernel deposit carries
-its own backward (kernel K2).
+displacement Psi (optionally through the TRANSF kernels) -> particles
+q + Psi (periodic wrap) [-> plane-parallel or radial RSD with Zel'dovich
+velocities] -> mass-assignment deposit (NGP, CIC, TSC, SPH, sph_ft, or the
+kernel TSC deposit) -> overdensity.  Differentiable end to end with torch
+autograd; the kernel deposit carries its own backward (kernel K2).
 
-Inputs may carry a leading chain dimension.  Radial RSD, the TRANSF
-kernels and the bf16 kernel options of the JAX package wait for a later
-slice.
+Inputs may carry a leading chain dimension.  The JAX package's bf16 kernel
+options are refused by the configuration (config.py).
 """
 from __future__ import annotations
 
@@ -26,15 +26,20 @@ class ForwardConfig:
     kernel deposit (K1 forward, K2 backward) and its windows."""
 
     sfmodel: int = 1          # 1 Zel'dovich, 2 2LPT, 3 ALPT
-    masskernel: object = 3    # 2 tsc / 'sph_ft' (others not ported yet)
+    masskernel: object = 3    # 0 ngp / 1 cic / 2 tsc / 3 sph / 'sph_ft'
     rsd: bool = False         # redshift-space mapping
-    rsd_planepar: bool = True  # plane-parallel (z-axis); radial not ported
-    observer: tuple = (0.0, 0.0, 0.0)
-    origin: tuple = (0.0, 0.0, 0.0)
+    rsd_planepar: bool = True  # plane-parallel (z-axis) vs radial about
+    observer: tuple = (0.0, 0.0, 0.0)  # xobs/yobs/zobs (rsd.cc:18-69)
+    origin: tuple = (0.0, 0.0, 0.0)  # box corner xllc/yllc/zllc: positions
+                              # are box-relative, so the origin enters only
+                              # the radial observer, obs_eff = observer -
+                              # origin (the JAX package's deliberate reading
+                              # of the reference, lag2eul.py:32-43)
     periodic: bool = True
     slength: float = 4.0      # ALPT long/short split scale [Mpc/h]
     kernel_h_rel: float = 1.0  # SPH kernel scale in mean-cell units
-    deriv_scheme: str = "fft"  # 2LPT source derivatives ('fft' only here)
+    deriv_scheme: str = "fft"  # 2LPT source derivatives: 'fft' or 'findif'
+                               # (4th-order finite differences)
     pallas_deposit: bool = False  # kernel TSC deposit (tsc/sph_ft)
     pallas_halo: int = 8      # halo contract: max |displacement| in cells + 1
     pallas_block: tuple = (8, 8)   # gather-kernel (K2) block (BX, BY)
@@ -60,27 +65,34 @@ def kernel_h(fc: ForwardConfig, g: GridSpec) -> float:
 
 
 def displaced_positions(delta_lag, g: GridSpec, fc: ForwardConfig,
-                        gp: GrowthParams, delta_C=None):
-    """Particle positions of the forward model (after RSD when fc.rsd)."""
+                        gp: GrowthParams, delta_C=None, transfer=None):
+    """Particle positions of the forward model (after RSD when fc.rsd);
+    radial RSD leaves them unwrapped."""
     psi = lpt.lpt_psi(delta_lag, g, fc.sfmodel, gp.D1, gp.D2, fc.slength,
-                      deriv_scheme=fc.deriv_scheme, delta_C=delta_C)
+                      deriv_scheme=fc.deriv_scheme, transfer=transfer,
+                      delta_C=delta_C)
     pos = particles.displace(psi, g)
     if fc.rsd:
-        if not fc.rsd_planepar:
-            raise NotImplementedError("radial RSD is not ported yet")
         # v = c_pecvel * Psi (Zel'dovich-only velocities, Lag2Eul.cc:375-381)
-        vel_z = gp.cpecvel * psi.select(-4, 2)
-        pos = particles.rsd_plane_parallel(pos, vel_z, g, gp.ascale,
-                                           gp.hubble, fc.periodic)
+        if fc.rsd_planepar:
+            vel_z = gp.cpecvel * psi.select(-4, 2)
+            pos = particles.rsd_plane_parallel(pos, vel_z, g, gp.ascale,
+                                               gp.hubble, fc.periodic)
+        else:
+            obs_eff = tuple(o - c for o, c in zip(fc.observer, fc.origin))
+            pos = particles.rsd_radial(pos, gp.cpecvel * psi, g, obs_eff,
+                                       gp.ascale, gp.hubble)
     return pos
 
 
 def lag2eul(delta_lag, g: GridSpec, fc: ForwardConfig, gp: GrowthParams,
-            return_pos: bool = False, delta_C=None):
+            return_pos: bool = False, transfer=None, delta_C=None):
     """delta_lag -> (delta_eul [, pos]) with unit-mass regular-grid
-    particles.  `delta_C` = optional precomputed rfft3(delta_lag), shared
-    with the prior energy by model/posterior.make_psi."""
-    pos = displaced_positions(delta_lag, g, fc, gp, delta_C)
+    particles.  `transfer` = optional (t_zeld, t_2lpt) rfft-layout TRANSF
+    kernels of the non-Zel'dovich paths (Lag2Eul.cc:174-191); `delta_C` =
+    optional precomputed rfft3(delta_lag), shared with the prior energy by
+    model/posterior.make_psi."""
+    pos = displaced_positions(delta_lag, g, fc, gp, delta_C, transfer)
     mk = {0: "ngp", 1: "cic", 2: "tsc", 3: "sph"}.get(fc.masskernel,
                                                      fc.masskernel)
     if fc.pallas_deposit and mk in ("tsc", "sph_ft"):

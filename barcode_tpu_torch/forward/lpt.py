@@ -1,13 +1,13 @@
 """Lagrangian perturbation theory displacement fields.
 
-Port of barcode_tpu/forward/lpt.py:40-218 — everything `lpt_psi` reaches for
-sfmodel 1 (Zel'dovich), 2 (2LPT) and 3 (ALPT) with spectral ('fft')
-second derivatives.  Inputs have shape (...,) + grid shape; displacements
-come back as (..., 3) + grid shape.  Sign conventions follow the JAX
-package (standard Bouchet et al. 1995 signs; see its module docstring).
-
-The TRANSF kernels and the 'findif' derivative scheme wait for a later
-slice.
+Port of barcode_tpu/forward/lpt.py:40-218: sfmodel 1 (Zel'dovich), 2 (2LPT)
+and 3 (ALPT), with spectral ('fft') or 4th-order finite-difference
+('findif') second derivatives in the 2LPT source, and the TRANSF kernels
+(`transfer=(t_zeld, t_2lpt)`, rfft-layout multipliers) on the
+non-Zel'dovich paths.  Inputs have shape (...,) + grid shape;
+displacements come back as (..., 3) + grid shape.  Sign conventions follow
+the JAX package (standard Bouchet et al. 1995 signs; see its module
+docstring).
 """
 from __future__ import annotations
 
@@ -40,15 +40,23 @@ def zeldovich_psi(delta1, g: GridSpec, D1: float, delta_C=None):
 
 
 def _second_order_source(delta_C, g: GridSpec, deriv_scheme: str = "fft"):
-    """m2v = sum_{i<j} (phi,ii phi,jj - phi,ij^2) with lap phi = delta,
-    spectral second derivatives phi,ij = IFFT[(k_i k_j / k^2) delta_k]
-    (lpt.py:70-103)."""
-    if deriv_scheme != "fft":
-        raise NotImplementedError(
-            f"deriv_scheme={deriv_scheme!r}: only 'fft' is ported")
+    """m2v = sum_{i<j} (phi,ii phi,jj - phi,ij^2) with lap phi = delta
+    (lpt.py:70-103): spectral second derivatives phi,ij =
+    IFFT[(k_i k_j / k^2) delta_k] ('fft'), or nested 4th-order
+    finite-difference gradients of the Poisson solution ('findif')."""
     kx, ky, kz = fourier.kvec(g, device=delta_C.device)
     k2 = kx * kx + ky * ky + kz * kz
     inv_k2 = torch.where(k2 > 0, 1.0 / torch.where(k2 > 0, k2, 1.0), 0.0)
+    if deriv_scheme == "findif":
+        phi = fourier.irfft3(-delta_C * inv_k2, g)
+        grads = [fourier.gradfindif(phi, g, a) for a in range(3)]
+        p = {(a, b): fourier.gradfindif(grads[a], g, b)
+             for a in range(3) for b in range(a, 3)}
+        return (p[0, 0] * p[1, 1] - p[0, 1] ** 2
+                + p[0, 0] * p[2, 2] - p[0, 2] ** 2
+                + p[1, 1] * p[2, 2] - p[1, 2] ** 2)
+    if deriv_scheme != "fft":
+        raise ValueError(f"unknown deriv_scheme {deriv_scheme!r}")
     base = delta_C * inv_k2
     # the cross terms are odd in one axis, so on the self-paired z planes
     # their Nyquist rows are not Hermitian: project them (as the CPU FFT of
@@ -62,19 +70,31 @@ def _second_order_source(delta_C, g: GridSpec, deriv_scheme: str = "fft"):
 
 
 def two_lpt_div_C(delta1, g: GridSpec, D1: float, D2: float,
-                  deriv_scheme: str = "fft", delta_C=None):
-    """Half-complex div Psi_2LPT = -D1 delta1_C + D2 rfft(m2v), D2 < 0
+                  deriv_scheme: str = "fft", transfer=None, delta_C=None):
+    """Half-complex div Psi_2LPT = -D1 delta1_C + D2 rfft(m2v), D2 < 0, the
+    TRANSF kernels multiplying the linear field and the source in place
     (lpt.py:106-127)."""
+    t_zeld, t_2lpt = transfer if transfer is not None else (None, None)
     if delta_C is None:
         delta_C = fourier.rfft3(delta1)
     m2v_C = fourier.rfft3(_second_order_source(delta_C, g, deriv_scheme))
-    return -D1 * delta_C + D2 * m2v_C
+    lin_C = delta_C if t_zeld is None else t_zeld * delta_C
+    if t_2lpt is not None:
+        m2v_C = t_2lpt * m2v_C
+    return -D1 * lin_C + D2 * m2v_C
+
+
+def two_lpt_div_psi(delta1, g: GridSpec, D1: float, D2: float,
+                    deriv_scheme: str = "fft", transfer=None):
+    """Real-space div Psi_2LPT (lpt.py:130-135)."""
+    return fourier.irfft3(
+        two_lpt_div_C(delta1, g, D1, D2, deriv_scheme, transfer), g)
 
 
 def two_lpt_psi(delta1, g: GridSpec, D1: float, D2: float,
-                deriv_scheme: str = "fft", delta_C=None):
+                deriv_scheme: str = "fft", transfer=None, delta_C=None):
     return _psi_from_div_C(
-        two_lpt_div_C(delta1, g, D1, D2, deriv_scheme, delta_C), g)
+        two_lpt_div_C(delta1, g, D1, D2, deriv_scheme, transfer, delta_C), g)
 
 
 def spherical_collapse_div_psi(delta1, g: GridSpec, D1: float):
@@ -97,19 +117,28 @@ def cellbound(v):
 
 def alpt_psi(delta1, g: GridSpec, D1: float, D2: float, slength: float,
              apply_cellbound: bool = True, deriv_scheme: str = "fft",
-             delta_C=None):
+             transfer=None, delta_C=None):
     """ALPT: Gaussian long/short-range split at `slength` of the 2LPT and
     spherical-collapse divergences, then one displacement solve
-    (lpt.py:158-199)."""
+    (lpt.py:158-199).  With TRANSF the transferred linear field feeds both
+    terms, while m2v comes from the raw field (Lag2Eul.cc:156-226)."""
+    t_zeld, t_2lpt = transfer if transfer is not None else (None, None)
     if delta_C is None:
         delta_C = fourier.rfft3(delta1)
     m2v = _second_order_source(delta_C, g, deriv_scheme)
-    div_sc = spherical_collapse_div_psi(delta1, g, D1)
+    if t_zeld is None:
+        lin_C, delta1_t = delta_C, delta1
+    else:
+        lin_C = t_zeld * delta_C
+        delta1_t = fourier.irfft3(lin_C, g)
+    div_sc = spherical_collapse_div_psi(delta1_t, g, D1)
     K = torch.exp(-fourier.k_squared(g, device=delta_C.device)
                   * (slength * slength) / 2.0)
     m2v_C, divsc_C = fourier.rfft3(torch.stack([m2v, div_sc], dim=-4)
                                    ).unbind(-4)
-    div2lpt_C = -D1 * delta_C + D2 * m2v_C
+    if t_2lpt is not None:
+        m2v_C = t_2lpt * m2v_C
+    div2lpt_C = -D1 * lin_C + D2 * m2v_C
     div_C = K * div2lpt_C + (1.0 - K) * divsc_C
     psi = _psi_from_div_C(div_C, g)
     if apply_cellbound:
@@ -118,14 +147,16 @@ def alpt_psi(delta1, g: GridSpec, D1: float, D2: float, slength: float,
 
 
 def lpt_psi(delta1, g: GridSpec, sfmodel: int, D1: float, D2: float,
-            slength: float, deriv_scheme: str = "fft", delta_C=None):
-    """Dispatch like Lag2Eul (lpt.py:202-218).  `delta_C` = optional
+            slength: float, deriv_scheme: str = "fft", transfer=None,
+            delta_C=None):
+    """Dispatch like Lag2Eul (lpt.py:202-218).  `transfer` acts on the
+    non-Zel'dovich paths only, as in the reference; `delta_C` = optional
     precomputed rfft3(delta1) shared with the prior energy."""
     if sfmodel == 1:
         return zeldovich_psi(delta1, g, D1, delta_C)
     if sfmodel == 2:
-        return two_lpt_psi(delta1, g, D1, D2, deriv_scheme, delta_C)
+        return two_lpt_psi(delta1, g, D1, D2, deriv_scheme, transfer, delta_C)
     if sfmodel == 3:
         return alpt_psi(delta1, g, D1, D2, slength, deriv_scheme=deriv_scheme,
-                        delta_C=delta_C)
+                        transfer=transfer, delta_C=delta_C)
     raise ValueError(f"unknown sfmodel {sfmodel}")

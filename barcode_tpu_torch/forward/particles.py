@@ -1,6 +1,6 @@
 """Particle displacement and redshift-space mapping.
 
-Port of barcode_tpu/forward/particles.py:16-48.  Particles are one per cell
+Port of barcode_tpu/forward/particles.py:16-60.  Particles are one per cell
 at cell centers; positions have shape (..., 3) + grid shape, the leading
 dimensions being chains.
 """
@@ -40,3 +40,16 @@ def rsd_plane_parallel(pos, vel_z, g: GridSpec, ascale: float, hubble: float,
     if periodic:
         znew = torch.remainder(znew, g.L3)
     return torch.stack([x, y, znew], dim=-4)
+
+
+def rsd_radial(pos, vel, g: GridSpec, obs_xyz, ascale: float, hubble: float):
+    """Radial RSD about the observer at obs_xyz: r_new = r + (v.r_hat)/(a H)
+    (rsd.cc:37-48).  No periodic wrap, as in the reference: positions may
+    leave the box."""
+    obs = torch.tensor(obs_xyz, dtype=pos.dtype,
+                       device=pos.device).reshape(3, 1, 1, 1)
+    rel = pos - obs
+    r = torch.sqrt(torch.sum(rel * rel, dim=-4))
+    r_safe = torch.where(r > 0, r, 1.0)
+    ruxv = torch.sum(rel * vel, dim=-4) / r_safe / (hubble * ascale)
+    return rel / r_safe.unsqueeze(-4) * (r + ruxv).unsqueeze(-4) + obs

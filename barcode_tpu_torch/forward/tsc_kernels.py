@@ -172,17 +172,28 @@ def deposit_violations(pos, g: GridSpec, halo):
     return bad.sum(dim=(-3, -2, -1))
 
 
+def contract_config(fc):
+    """The forward configuration whose particle positions the x/y halo
+    contract is measured on.  Plane-parallel RSD moves z only, so it is
+    dropped, as the JAX package drops every RSD (pallas_deposit.py:599).
+    Radial RSD moves x and y too, so it is kept: without it the quantile
+    halo and the violation monitor miss the RSD shift, and the tail
+    overflows unwarned."""
+    if fc.rsd and not fc.rsd_planepar:
+        return fc
+    return dataclasses.replace(fc, rsd=False)
+
+
 def _offset_histogram(delta, g: GridSpec, fc, gp):
     """bincount of max(|x off|, |y off|) cells of the particle map for
-    `delta` (RSD off: the x/y contract is RSD-free), pallas_deposit.py:
-    591-620.  Over the full min-image range, so nothing is dropped."""
+    `delta` (positions of `contract_config`), pallas_deposit.py:591-620.
+    Over the full min-image range, so nothing is dropped."""
     import numpy as np
 
     from barcode_tpu_torch.forward.lag2eul import displaced_positions
 
-    fc_norsd = dataclasses.replace(fc, rsd=False)
     with torch.no_grad():
-        pos = displaced_positions(delta, g, fc_norsd, gp)
+        pos = displaced_positions(delta, g, contract_config(fc), gp)
         base = torch.floor(pos / _cell(g, pos))
         qx, qy = _lagrangian_rows(g, pos)
         offx = torch.remainder(base[0] - qx + g.N1 / 2, g.N1) - g.N1 / 2
@@ -361,18 +372,20 @@ def _launch_args(g: GridSpec, C: int):
     return (C, g.N1, g.N2, g.N3, d1, d2, d3)
 
 
-def _fixed_point_scale(weights, n_per_chain: int, device):
+def _fixed_point_scale(weights, max_sum_per_weight: float, device):
     """K1's fixed-point scale 2^e, a float64 scalar on the device (no host
-    sync): the largest power of two with n_per_chain * max|w| * 2^e <= 2^62
-    over the finite weights, so no cell's 64-bit sum can overflow; 1 when
-    every weight is 0.  (Non-finite weights make their chain NaN.)"""
+    sync): the largest power of two with max_sum_per_weight * max|w| * 2^e
+    <= 2^62 over the finite weights, so no cell's 64-bit sum can overflow
+    (for TSC, whose taps of one particle sum to 1, max_sum_per_weight is
+    the particle count of a chain); 1 when every weight is 0.  (Non-finite
+    weights make their chain NaN.)"""
     if weights is None:
         wmax = torch.ones((), dtype=torch.float64, device=device)
     else:  # max |w| over the finite weights, in two passes
         wmax = torch.linalg.vector_norm(
             torch.nan_to_num(weights, nan=0.0, posinf=0.0, neginf=0.0),
             float("inf")).double()
-    e = torch.floor(62.0 - torch.log2(wmax * n_per_chain))
+    e = torch.floor(62.0 - torch.log2(wmax * max_sum_per_weight))
     e = torch.where(wmax > 0, e, torch.zeros_like(e)).clamp(-1000.0, 1000.0)
     return torch.exp2(e)
 

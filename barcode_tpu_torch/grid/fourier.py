@@ -1,4 +1,4 @@
-"""Spectral operators on the periodic grid (main-path subset).
+"""Spectral operators on the periodic grid.
 
 Port of barcode_tpu/grid/fourier.py.  FFTs are `torch.fft.rfftn`/`irfftn`
 over the last three axes (cuFFT on the card), so any leading batch
@@ -90,6 +90,60 @@ def hermitian_part(X, g: GridSpec):
     return torch.cat([sym(X[..., :1]), X[..., 1:]], dim=-1)
 
 
+def gradfft(x, g: GridSpec, axis: int):
+    """Spectral gradient along grid axis `axis` (0, 1, 2), Nyquist planes
+    zeroed (fourier.py:98-107)."""
+    kl = kvec(g, dtype=x.dtype, device=x.device)[axis]
+    return irfft3((1j * kl) * rfft3(x) * nyquist_mask(g, device=x.device), g)
+
+
+def gradfindif(x, g: GridSpec, axis: int):
+    """4th-order central finite-difference gradient with periodic wrap,
+    f' = [(4/3)(f_{+1} - f_{-1}) - (1/6)(f_{+2} - f_{-2})] / (2 d)
+    (fourier.py:110-122)."""
+    d = g.cell[axis]
+    dim = axis - 3
+
+    def r(s):  # f(x + s)
+        return torch.roll(x, -s, dim)
+
+    return ((4.0 / 3.0) * (r(1) - r(-1))
+            - (1.0 / 6.0) * (r(2) - r(-2))) / (2.0 * d)
+
+
+def grad_inv_lap_C(X, g: GridSpec, axis: int):
+    """Multiply a half-complex field by -i k_axis / k^2, Nyquist zeroed
+    (fourier.py:125-135)."""
+    kx, ky, kz = kvec(g, device=X.device)
+    k2 = kx * kx + ky * ky + kz * kz
+    kl = (kx, ky, kz)[axis]
+    fac = torch.where(k2 > 0, kl / torch.where(k2 > 0, k2, 1.0), 0.0)
+    return (-1j) * fac * X * nyquist_mask(g, device=X.device)
+
+
+def poisson_inv_C(X, g: GridSpec):
+    """Multiply a half-complex field by -1/k^2, DC zeroed
+    (fourier.py:138-145)."""
+    k2 = k_squared(g, device=X.device)
+    return torch.where(k2 > 0, -1.0 / torch.where(k2 > 0, k2, 1.0), 0.0) * X
+
+
+def poisson_solve(delta, g: GridSpec):
+    """phi with lap(phi) = delta (spectral -1/k^2)."""
+    return irfft3(poisson_inv_C(rfft3(delta), g), g)
+
+
+def displacement_from_phi(phi, g: GridSpec):
+    """Psi_i = d/dx_i of the inverse Laplacian of phi, stacked on axis -4:
+    one rfft and one batched irfft (fourier.py:153-168)."""
+    kx, ky, kz = kvec(g, device=phi.device)
+    k2 = kx * kx + ky * ky + kz * kz
+    guard = k2 > 1e-14
+    inv_k2 = torch.where(guard, 1.0 / torch.where(guard, k2, 1.0), 0.0)
+    base = (-1j) * rfft3(phi) * inv_k2 * nyquist_mask(g, device=phi.device)
+    return irfft3(torch.stack([kx * base, ky * base, kz * base], dim=-4), g)
+
+
 def hermitian_mult(g: GridSpec, dtype=torch.float32, device=None):
     """Multiplicity of each half-complex mode in the full complex grid:
     2 for 0 < kz < N3/2, else 1 (fourier.py:167-174)."""
@@ -124,6 +178,12 @@ def convolve_inv_corr(x, g: GridSpec, corr_rfft):
     return irfft3(_inv_corr_fac(g, corr_rfft) * rfft3(x), g)
 
 
+def apply_corr(x, g: GridSpec, corr_rfft):
+    """out = IFFT[(N/V) C(k) FFT(x)], the inverse of convolve_inv_corr
+    (fourier.py:209-212)."""
+    return irfft3((g.N / g.vol) * corr_rfft * rfft3(x), g)
+
+
 def smooth(x, g: GridSpec, scale: float, filtertype: int = 1):
     """Fourier-space smoothing (fourier.py:213-233): 1 Gaussian
     exp(-k^2 r^2 / 2), 2 top-hat k <= scale, 3 erfc transition of width
@@ -139,6 +199,35 @@ def smooth(x, g: GridSpec, scale: float, filtertype: int = 1):
     else:
         raise ValueError(f"unknown filtertype {filtertype}")
     return irfft3(K * rfft3(x), g)
+
+
+def smooth_zeropad(x, g: GridSpec, scale: float, filtertype: int = 1):
+    """`smooth` with 2x zero-padding, the reference's non-periodic branch
+    (fourier.py:239-255): the field sits at the centre of a doubled box."""
+    gz = GridSpec(2 * g.N1, 2 * g.N2, 2 * g.N3, 2 * g.L1, 2 * g.L2, 2 * g.L3)
+    sl = (..., slice(g.N1 // 2, g.N1 // 2 + g.N1),
+          slice(g.N2 // 2, g.N2 // 2 + g.N2),
+          slice(g.N3 // 2, g.N3 // 2 + g.N3))
+    big = x.new_zeros(x.shape[:-3] + gz.shape)
+    big[sl] = x
+    return smooth(big, gz, scale, filtertype)[sl]
+
+
+def fft_upsample(x, g: GridSpec, factor: int):
+    """Band-limited upsampling by Fourier zero-padding (fourier.py:258-276):
+    the mean and every existing mode are kept, the new modes are zero."""
+    X = rfft3(x)
+    g2 = GridSpec(factor * g.N1, factor * g.N2, factor * g.N3, g.L1, g.L2,
+                  g.L3)
+    big = X.new_zeros(X.shape[:-3] + g2.rshape)
+    n1, n2, n3h = g.rshape
+    h1, h2 = g.N1 // 2, g.N2 // 2
+    # the four (x, y) frequency corners; z is already low-first in rfft
+    big[..., :h1, :h2, :n3h] = X[..., :h1, :h2, :]
+    big[..., :h1, -(n2 - h2):, :n3h] = X[..., :h1, h2:, :]
+    big[..., -(n1 - h1):, :h2, :n3h] = X[..., h1:, :h2, :]
+    big[..., -(n1 - h1):, -(n2 - h2):, :n3h] = X[..., h1:, h2:, :]
+    return irfft3(big, g2) * (factor**3)
 
 
 # ---------------------------------------------------------------------------

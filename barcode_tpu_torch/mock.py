@@ -2,10 +2,12 @@
 
 Port of barcode_tpu/mock.py (setup_random_test, barcoderunner.cc:42-205):
 GRF truth -> forward model (optionally RSD) -> window -> observed tracer
-field under the chosen noise model.  Draws come from a `torch.Generator`;
-the truth is the plain `grf` (the JAX package's resolution-independent
-draw waits for a later slice), so the two packages' mocks agree in
-distribution, not in value.
+field under the chosen noise model.  Draws come from a `torch.Generator`.
+The truth is the resolution-independent draw by default, as in the JAX
+package (one seed gives the same large-scale modes at N and 2N), or the
+plain `grf` with resolution_independent=False; the noise continues the
+same generator.  The two packages' mocks agree in distribution, not in
+value.
 """
 from __future__ import annotations
 
@@ -45,9 +47,14 @@ def make_window(window_type: int, delta_eul, g: GridSpec):
 
 def generate(generator: torch.Generator, g: GridSpec, mock: MockConfig,
              fc: ForwardConfig, gp: GrowthParams, power_rfft, likelihood: int,
-             rho_c: float = 1.0, delta_min: float = -0.999) -> MockData:
+             rho_c: float = 1.0, delta_min: float = -0.999,
+             resolution_independent: bool = True) -> MockData:
     """One mock on the generator's device (mock.py:44-88)."""
-    truth = random_fields.grf(generator, g, power_rfft)
+    if resolution_independent:
+        truth = random_fields.grf_resolution_independent(generator, g,
+                                                         power_rfft)
+    else:
+        truth = random_fields.grf(generator, g, power_rfft)
     fc_mock = dataclasses.replace(fc, rsd=mock.random_test_rsd)
     with torch.no_grad():
         d_eul = lag2eul(truth, g, fc_mock, gp)

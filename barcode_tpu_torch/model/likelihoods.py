@@ -38,6 +38,17 @@ class ObsData:
             noise=self.noise.to(device), power=self.power.to(device))
 
 
+def prior_psi(delta_lag, g: GridSpec, obs: ObsData):
+    """psi_prior = 1/2 s . IFFT[(V/N)/P(k) FFT(s)] (likelihoods.py:48-52)."""
+    Sinv_s = fourier.convolve_inv_corr(delta_lag, g, obs.power)
+    return 0.5 * torch.sum(delta_lag * Sinv_s, dim=_GRID)
+
+
+def prior_grad(delta_lag, g: GridSpec, obs: ObsData):
+    """d psi_prior / d s = S^-1 s (likelihoods.py:62-64)."""
+    return fourier.convolve_inv_corr(delta_lag, g, obs.power)
+
+
 def prior_psi_C(delta_C, g: GridSpec, obs: ObsData):
     """psi_prior = 1/2 s . S^-1 s from the half-complex spectrum of s via
     Parseval (likelihoods.py:51-56)."""
@@ -94,3 +105,28 @@ def likelihood_psi(likelihood: int, delta_field, obs: ObsData):
     if likelihood == 3:
         return grf_psi(delta_field, obs)
     raise ValueError(f"unknown likelihood {likelihood}")
+
+
+def partial_f_delta_x(likelihood: int, delta_x, obs: ObsData):
+    """d(-log L)/d delta_x elementwise, the reference's
+    partial_f_delta_x_log_like (likelihoods.py:130-160), for the analytic
+    adjoint (model/adjoint.py): 0 Poisson, 1 Gaussian, 2 log-normal."""
+    if likelihood in (0, 1):
+        lam, dens = _lambda_powerlaw(delta_x, obs)
+        slope = obs.rho_c * obs.biasE * obs.biasP \
+            * torch.clamp(dens, min=1e-30) ** (obs.biasE - 1.0)
+        if likelihood == 0:
+            valid = (obs.window > 0.0) & (dens > 0.0)
+            out = (1.0 - obs.nobs / torch.where(lam > 0, lam, 1.0)) * slope
+        else:
+            valid = (obs.window > 0.0) & (lam > 0.0)
+            out = (lam - obs.nobs) / (obs.noise * obs.noise) \
+                * (obs.window * slope)
+        return torch.where(valid, out, 0.0)
+    if likelihood == 2:
+        dclip = torch.clamp(delta_x, min=obs.delta_min)
+        lam = torch.log(obs.rho_c * (1.0 + dclip))
+        out = (lam - obs.nobs) / (obs.noise * obs.noise) / (1.0 + dclip)
+        out = torch.where(delta_x > obs.delta_min, out, 0.0)
+        return torch.where(obs.window > 0.0, out, 0.0)
+    raise ValueError(f"partial_f_delta_x undefined for likelihood {likelihood}")

@@ -93,7 +93,9 @@ def initial_guess(conf: RunConfig, generator: torch.Generator, power,
 def likelihood_force(conf: RunConfig, gp, obs: ObsData, signal):
     """grad of psi_likelihood at `signal` (runner.py:231-248), through the
     windowless deposit as in the JAX runner: the force only seeds the
-    mass-2/3 preconditioner spectrum."""
+    mass-2/3 preconditioner spectrum.  Where psi does not depend on the
+    signal through autograd (NGP: constant deposit weights, and a floor of
+    zero slope) the force is the zero field, as jax.grad gives."""
     mc = conf.model
     fwd = dataclasses.replace(mc.forward, pallas_deposit=False)
     with torch.enable_grad():
@@ -103,6 +105,8 @@ def likelihood_force(conf: RunConfig, gp, obs: ObsData, signal):
         else:
             dx = lag2eul(mc.deltaQ_factor * s, conf.grid, fwd, gp)
             psi = likelihoods.likelihood_psi(mc.likelihood, dx, obs)
+        if not psi.requires_grad:
+            return torch.zeros_like(s)
         (grad,) = torch.autograd.grad(psi, s)
     return grad
 
@@ -191,11 +195,12 @@ class Runner:
             return lag2eul(s, self.g, fwd, self.gp)
 
     def _violations(self, s) -> int:
-        """Halo-contract violators of one signal (x/y only: RSD shifts z)."""
+        """Halo-contract violators of one signal (x/y only: plane-parallel
+        RSD shifts z; radial RSD is kept, `tsc_kernels.contract_config`)."""
         fwd = self.conf.model.forward
         with torch.no_grad():
             pos = displaced_positions(s, self.g,
-                                      dataclasses.replace(fwd, rsd=False),
+                                      tsc_kernels.contract_config(fwd),
                                       self.gp)
             return int(tsc_kernels.deposit_violations(pos, self.g,
                                                       fwd.pallas_halo))

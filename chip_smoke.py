@@ -22,7 +22,12 @@ counters must read 0 on every path.  The paths:
     a session, a resume from checkpoint.npz and a restart from the dumps;
   * the slab-sharded mode at 256^3 through `python -m barcode_tpu_torch
     input.par --sharded`: one rank over NCCL, the slab deposit K3 and its
-    gather K4, the sharded FFTs and the ring exchange.
+    gather K4, the sharded FFTs and the ring exchange;
+  * the headline configuration with radial RSD about a box corner through
+    `Runner` at 128^3 (K1 and K2 on positions outside the box);
+  * the reference's own data/input.par model (Zel'dovich, the SPH mass
+    kernel, Gaussian likelihood, adaptive step size) at 128^3 through the
+    command line: windowless deposits, no kernel launch.
 
 Phases:
   1. device       card name, count and `nvidia-smi` name/power limit
@@ -57,6 +62,22 @@ Phases:
                   each with the launch counters zeroed before it and checked
                   after; the profile's top kernels by device time; K1 against
                   the witnesses at the chains' positions after the calls
+  6b. masskernels the windowless deposits of every mass kernel (NGP, CIC,
+                  TSC, SPH, sph_ft) on the 128^3 truth's positions, with and
+                  without weights: the same bits on 3 calls, mass conserved,
+                  values and position gradients against the CPU, forward
+                  and forward+backward times and launches per call
+  6c. options     psi and grad psi at 128^3, card against CPU: radial RSD
+                  through the kernel deposit (K1/K2 also against their plain
+                  versions on positions outside the box), 2LPT with 'findif'
+                  derivatives, ALPT with TRANSF kernels from the EH98 table,
+                  NGP with mass type 2 (a zero likelihood force); the
+                  resolution-independent GRF's shared modes at 64^3 and 128^3
+  6d. radial_path the 128^3 Runner session with radial RSD, launch counters
+                  checked as in `path`
+  6e. sph_cli     three command-line calls of the reference's input.par model
+                  at 128^3 (session; --resume; restart from deltaLAG_2), every
+                  kernel counter at 0
  10. spectrum_determinism
                   measure_spectrum at 128^3 gives the same bits in 5 calls
                   (the float index_add_ form it replaced, measured beside);
@@ -93,7 +114,9 @@ the line before it lists the kernels.
 from __future__ import annotations
 
 import collections
+import dataclasses
 import json
+import math
 import shutil
 import subprocess
 import sys
@@ -104,20 +127,22 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from barcode_tpu_torch import cli, cuda_build
-from barcode_tpu_torch import io as bio
+from barcode_tpu_torch import cli, cosmo as cosmo_mod, cuda_build
+from barcode_tpu_torch import io as bio, random_fields
 from barcode_tpu_torch.config import HMCConfig, RunConfig
-from barcode_tpu_torch.forward import assign
+from barcode_tpu_torch.forward import assign, transfer
 from barcode_tpu_torch.forward import tsc_kernels as tk
-from barcode_tpu_torch.forward.lag2eul import ForwardConfig, displaced_positions
+from barcode_tpu_torch.forward.lag2eul import (ForwardConfig,
+                                               displaced_positions, lag2eul)
 from barcode_tpu_torch.grid import fourier
 from barcode_tpu_torch.grid.spec import GridSpec
 from barcode_tpu_torch.hmc import mass as mass_mod
+from barcode_tpu_torch.model import likelihoods
 from barcode_tpu_torch.model.posterior import ModelConfig, make_psi_value_and_grad
 from barcode_tpu_torch.parallel import distributed as pdist
 from barcode_tpu_torch.parallel import sharded_forward as sfw
 from barcode_tpu_torch.parallel.sharded_fft import shard_real
-from barcode_tpu_torch.runner import Runner
+from barcode_tpu_torch.runner import Runner, likelihood_force
 
 BUDGET_S = 900.0          # hard stop; the run aims at half of its 1200 s
 N_GRID, BOX = 128, 200.0  # headline configuration (bench.py:60-155)
@@ -667,7 +692,7 @@ def path_inputs(runner: Runner) -> dict:
 
 
 def phase_cli256(dev, tmp: str, sharded: bool = False, chains: int = 1,
-                 keep: dict | None = None):
+                 keep: dict | None = None, par_text: str | None = None):
     """Three command-line calls at 256^3: a session; --resume with
     --profile; a restart from deltaLAG_2 + the performance log after the
     checkpoint is removed.  With `sharded` the calls add --sharded and
@@ -676,11 +701,17 @@ def phase_cli256(dev, tmp: str, sharded: bool = False, chains: int = 1,
     Launch counters are zeroed before each call and checked after it (on
     every rank).  Returns the path's launches of each kernel.  A dense
     run fills `keep` with the deposit's inputs at the chains' positions
-    after the last call (its halo, block, positions and tail weights)."""
+    after the last call (its halo, block, positions and tail weights).
+    `par_text` replaces the 256^3 input.par with another model whose
+    deposits are windowless (no kernel launches; no profile)."""
     rank = torch.distributed.get_rank() \
         if torch.distributed.is_initialized() else 0
     (Path(tmp) / f"par{rank}").mkdir(exist_ok=True)
-    par = write_input_par(Path(tmp) / f"par{rank}")
+    if par_text is None:
+        par = write_input_par(Path(tmp) / f"par{rank}")
+    else:
+        par = Path(tmp) / f"par{rank}" / "input.par"
+        par.write_text(par_text)
     out = Path(tmp) / "run"
     prof = Path(tmp) / "prof"
     n_chains = chains if sharded else N_CHAINS
@@ -691,7 +722,8 @@ def phase_cli256(dev, tmp: str, sharded: bool = False, chains: int = 1,
     on_card = dev.type == "cuda"
     world = torch.distributed.get_world_size() \
         if torch.distributed.is_initialized() else 1
-    profile = ["--profile", str(prof)] if world == 1 else []
+    profile = ["--profile", str(prof)] \
+        if world == 1 and par_text is None else []
     calls = (("session", [str(par), *common, "--samples", "1", "--nan-check"]),
              ("resume", [str(par), *common, "--resume", "--samples", "2",
                          *profile]),
@@ -743,7 +775,7 @@ def phase_cli256(dev, tmp: str, sharded: bool = False, chains: int = 1,
         # package (sharded_runner.py:165-171)
         if on_card and sharded:
             expected.update(K3=grads, K4=grads)
-        elif on_card:
+        elif on_card and par_text is None:
             expected.update(K1=grads + n_dep, K2=grads)
         ck = np.load(out / f"{ckpt}.npz")
         accepted, psi = ck["state_accepted"], ck["state_psi"]
@@ -766,7 +798,10 @@ def phase_cli256(dev, tmp: str, sharded: bool = False, chains: int = 1,
         if not np.isfinite(psi).all() or attempts == 0 or rewritten:
             raise RuntimeError(f"{name}: non-finite psi, no attempt, or a "
                                "sample dumped twice")
-        if name == "resume" and not (accepted > last).all():
+        # at eps_fac 1e-4 every resumed chain accepts; under the adaptive
+        # step size of another model a chain may reject a whole batch
+        if name == "resume" and not ((accepted > last) if par_text is None
+                                     else (accepted >= last)).all():
             raise RuntimeError(f"resume: accepted did not continue from {last}")
         last = accepted
         total.update(launches)
@@ -993,6 +1028,298 @@ def phase_sharded_psi256(dev, runner: Runner):
         raise RuntimeError(f"sharded psi launches {launches}: expected K3 "
                            "twice (value, then value and grad), K4 once and "
                            "nothing else")
+
+
+MASS_CODES = (0, 1, 2, 3, "sph_ft")
+# particle rows of the truth's positions that the CPU reference deposits (of
+# 128): the CPU takes minutes for the SPH stencil's 81 scatters at the full
+# 128^3 x 2 chains, so it checks a slab of the particles, deposited into
+# the full grid; the card's determinism, mass and times are at full size
+CPU_ROWS = 8
+
+
+def kernel_launches(fn) -> int:
+    """CUDA kernel launches of one call of fn, counted in a torch.profiler
+    trace (0 off the card)."""
+    if not torch.cuda.is_available():
+        return 0
+    with tempfile.TemporaryDirectory() as d:
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CPU,
+                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        path = Path(d) / "trace.json"
+        prof.export_chrome_trace(str(path))
+        events = json.loads(path.read_text())
+    events = events["traceEvents"] if isinstance(events, dict) else events
+    return sum(1 for e in events
+               if e.get("cat") == "kernel" and e.get("ph") == "X")
+
+
+def deposit_and_grad(pos, g, mk, h, w, cot):
+    """(rho, d<cot, rho>/dpos or None) of assign.deposit."""
+    p = pos.detach().clone().requires_grad_(True)
+    rho = assign.deposit(p, g, mk, h, w)
+    if not rho.requires_grad:  # NGP: constant weights
+        return rho, None
+    (grad,) = torch.autograd.grad((rho * cot).sum(), p)
+    return rho.detach(), grad
+
+
+def phase_masskernels(dev, inputs):
+    """The windowless mass kernels of assign.deposit (0 NGP, 1 CIC, 2 TSC,
+    3 SPH, sph_ft) on the headline truth's positions at 128^3 (2 chains),
+    unweighted and weighted: the same bits on 3 calls; mass conserved; the
+    card against the same function on the CPU (values and autograd
+    position gradients, on the particles of the first CPU_ROWS rows);
+    forward and forward+backward times (CUDA events) and launches per
+    call.  Returns the times."""
+    g, pos = inputs["g"], inputs["pos"]
+    h = g.cell_avg  # kernel_h at particle_kernel_h_rel = 1
+    gen = torch.Generator(device=dev).manual_seed(31)
+    w = 0.5 + torch.rand(pos.shape[:1] + g.shape, generator=gen, device=dev)
+    cot = torch.randn(pos.shape[:1] + g.shape, generator=gen, device=dev)
+    sub = pos[:, :, :CPU_ROWS].contiguous()
+    cell_vol = math.prod(g.cell)
+    print(f"  {g.N1}^3, {pos.shape[0]} chains, h {h:.4f}; the CPU reference "
+          f"on the particles of {CPU_ROWS} of {g.N1} rows; SPH stencil "
+          f"{len(assign.sph_stencil(g, h))} offsets")
+    times = {}
+    for mk in MASS_CODES:
+        for tag, ww in (("unweighted", None), ("weighted", w)):
+            label = f"masskernel {mk!r} {tag}"
+            rho = assign.deposit(pos, g, mk, h, ww)
+            same = all(torch.equal(rho, assign.deposit(pos, g, mk, h, ww))
+                       for _ in range(2))
+            mass = rho.double().sum((1, 2, 3))
+            want = (torch.full_like(mass, g.N) if ww is None
+                    else ww.double().sum((1, 2, 3)))
+            if mk == 3:  # rho = sum_p W: the grid sums to N / cell volume
+                mass, rtol = mass * cell_vol, 0.02
+            else:
+                rtol = 1e-5
+            mass_err = ((mass - want).abs() / want).max().item()
+            wsub = None if ww is None else ww[:, :CPU_ROWS].contiguous()
+            rho_s, grad_s = deposit_and_grad(sub, g, mk, h, wsub, cot)
+            rho_c, grad_c = deposit_and_grad(
+                sub.cpu(), g, mk, h, None if wsub is None else wsub.cpu(),
+                cot.cpu())
+            print(f"  {label}: the same bits on 3 calls {same}; mass rel err "
+                  f"{mass_err:.3e} (tol {rtol:.0e})")
+            compare(f"{label} card vs CPU", rho_s.cpu(), rho_c, TOL_DEP_REL)
+            if grad_c is None:
+                print(f"  {label}: no position gradient (constant weights)")
+            else:
+                compare(f"{label} position gradient card vs CPU",
+                        grad_s.cpu(), grad_c, TOL_GATHER_REL)
+            if not (same and mass_err <= rtol):
+                raise RuntimeError(f"{label}: not deterministic or mass lost")
+            if dev.type != "cuda":
+                continue
+
+            def fwd():
+                return assign.deposit(pos, g, mk, h, ww)
+
+            def fwd_bwd():
+                return deposit_and_grad(pos, g, mk, h, ww, cot)
+
+            n = 3 if mk == 3 else 10
+            times[label] = dict(fwd_ms=cuda_ms(fwd, n, warmup=1),
+                                fwd_bwd_ms=cuda_ms(fwd_bwd, n, warmup=1),
+                                fwd_launches=kernel_launches(fwd),
+                                fwd_bwd_launches=kernel_launches(fwd_bwd))
+            t = times[label]
+            print(f"  {label}: forward {t['fwd_ms']:.3f} ms "
+                  f"({t['fwd_launches']} launches), forward+backward "
+                  f"{t['fwd_bwd_ms']:.3f} ms ({t['fwd_bwd_launches']} "
+                  "launches)", flush=True)
+    return times
+
+
+RADIAL_OBSERVER = dict(rsd_planepar=False, observer=(150.0, -70.0, 30.0),
+                       origin=(150.0, -70.0, 30.0))
+
+
+def radial_conf() -> RunConfig:
+    """The headline configuration with radial RSD about a box corner, given
+    in absolute coordinates with a non-zero origin (observer - origin = 0):
+    many particles leave the box."""
+    conf = headline_conf(N_GRID)
+    fc = dataclasses.replace(conf.model.forward, **RADIAL_OBSERVER)
+    return dataclasses.replace(conf, model=dataclasses.replace(
+        conf.model, forward=fc))
+
+
+def compare_psi(label, target, delta, obs, g, dev):
+    """psi and grad psi of `target(delta, obs)` -> (psi, grad) on the card
+    and on the CPU, within TOL_PSI_REL and TOL_GRAD_REL."""
+    psi_d, grad_d = target(delta, obs)
+    sync(dev)
+    psi_c, grad_c = target(delta.cpu(), obs.to("cpu"))
+    psi_err = ((psi_d.cpu() - psi_c).abs() / psi_c.abs()).max().item()
+    grad_err = max((torch.linalg.vector_norm(grad_d[c].cpu() - grad_c[c])
+                    / torch.linalg.vector_norm(grad_c[c])).item()
+                   for c in range(delta.shape[0]))
+    ok = (psi_err <= TOL_PSI_REL and grad_err <= TOL_GRAD_REL
+          and bool(torch.isfinite(grad_d).all()))
+    print(f"  {label}: psi {psi_d.tolist()}; psi rel err {psi_err:.3e} (tol "
+          f"{TOL_PSI_REL:.0e}), grad psi rel L2 err {grad_err:.3e} (tol "
+          f"{TOL_GRAD_REL:.0e}) {'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise RuntimeError(f"{label}: psi / grad psi on the card disagree "
+                           "with the CPU")
+    return psi_err, grad_err
+
+
+def posterior(g, mc, gp):
+    def target(delta, obs):
+        (psi, _), grad = make_psi_value_and_grad(g, mc, gp, obs)(delta)
+        return psi, grad
+    return target
+
+
+def eh98_transf(g: GridSpec, conf: RunConfig, device):
+    """TRANSF kernels from the EH98 table: t_zeld = T(k) and t_2lpt =
+    T(k)^2 of the no-wiggle transfer function, interpolated onto the grid."""
+    k = np.logspace(-4, 2, 1024)
+    T = cosmo_mod.eh_transfer_nowiggle(conf.cosmo(), k)
+    return tuple(transfer.transfer_on_grid(g, k, t, device)
+                 for t in (T, T * T))
+
+
+def phase_options(dev, tmp: str):
+    """psi and grad psi at 128^3, card against CPU: (a) radial RSD about a
+    box corner through the kernel deposit with the tail split, K1/K2 also
+    against their plain versions (and their witnesses) on those positions;
+    (b) 2LPT with 'findif' derivatives; (c) ALPT with TRANSF kernels from
+    the EH98 table; (d) NGP with mass type 2, whose likelihood force is the
+    zero field; (e) the resolution-independent GRF at 64^3 and 128^3 from
+    one seed, modes equal inside both grids."""
+    runner = Runner(radial_conf(), out_dir=tmp, device=dev)
+    runner.setup(n_chains=N_CHAINS)
+    g, gp, mc = runner.g, runner.gp, runner.conf.model
+    fc = mc.forward
+    delta = torch.stack([runner.truth, 0.5 * runner.truth])
+    with torch.no_grad():
+        pos = displaced_positions(delta, g, fc, gp).contiguous()
+    L = torch.tensor([g.L1, g.L2, g.L3], device=dev).reshape(3, 1, 1, 1)
+    outside = ((pos < 0) | (pos >= L)).any(1).sum((1, 2, 3)).tolist()
+    hx, hy = tk._halo_pair(fc.pallas_halo)
+    ok = (assign._halo_excess(pos, g, hx, hy) <= 0.0).float()
+    print(f"  (a) radial RSD, observer - origin = "
+          f"{tuple(o - c for o, c in zip(fc.observer, fc.origin))}: particles "
+          f"outside the box per chain {outside}; halo {fc.pallas_halo}, "
+          f"tail_k {fc.pallas_tail_k}, violators per chain "
+          f"{(ok == 0).sum((1, 2, 3)).tolist()}")
+    if min(outside) == 0:
+        raise RuntimeError("radial RSD left every particle in the box")
+    if (ok == 0).sum((1, 2, 3)).max().item() > fc.pallas_tail_k:
+        raise RuntimeError("(a) more violators than the tail holds: the "
+                           "resolved halo misses the radial RSD shift")
+    cot = torch.randn((N_CHAINS,) + g.shape, device=dev,
+                      generator=torch.Generator(device=dev).manual_seed(37))
+    block = tuple(fc.pallas_block)
+    errs = check_kernels(f"{g.N1}^3 radial", g, pos, fc.pallas_halo,
+                         assign.auto_block_dep(g, fc.pallas_halo, block),
+                         block, ok, cot)
+    zero_launches()
+    compare_psi("(a) ALPT + radial RSD + sph_ft, kernel deposit",
+                posterior(g, mc, gp), delta, runner.obs, g, dev)
+    launches = read_launches()
+    want = dict.fromkeys(KERNEL_LAUNCHERS, 0)
+    if dev.type == "cuda":
+        want.update(K1=1, K2=1)
+    print(f"  (a) launches of one psi + grad on the card: {launches}")
+    if launches != want:
+        raise RuntimeError(f"(a) launches {launches} != {want}")
+    obs = runner.obs
+    runner.close()
+    one = delta[:1]
+
+    mc_fd = ModelConfig(likelihood=1, forward=dataclasses.replace(
+        fc, sfmodel=2, deriv_scheme="findif", rsd_planepar=True))
+    compare_psi("(b) 2LPT, findif derivatives", posterior(g, mc_fd, gp), one,
+                obs, g, dev)
+
+    fc_t = dataclasses.replace(fc, rsd_planepar=True)
+
+    def transf_target(d, o):
+        t = eh98_transf(g, runner.conf, d.device)
+        with torch.enable_grad():
+            x = d.detach().requires_grad_(True)
+            psi = likelihoods.prior_psi(x, g, o) + likelihoods.gaussian_psi(
+                lag2eul(x, g, fc_t, gp, transfer=t), o)
+            (grad,) = torch.autograd.grad(psi.sum(), x)
+        return psi.detach(), grad
+
+    compare_psi("(c) ALPT, TRANSF kernels from the EH98 table",
+                transf_target, one, obs, g, dev)
+
+    fc_ngp = ForwardConfig(sfmodel=1, masskernel=0)
+    conf_ngp = dataclasses.replace(
+        headline_conf(g.N1), model=ModelConfig(likelihood=1, forward=fc_ngp),
+        hmc=HMCConfig(mass_type=2))
+    force = likelihood_force(conf_ngp, gp, obs, delta[0])
+    mass = mass_mod.compute_mass(g, 2, obs.power, nbin=conf_ngp.N_bin,
+                                 likeli_force=force, window=obs.window,
+                                 noise=obs.noise, kernel_h=g.cell_avg)
+    finite = all(bool(torch.isfinite(torch.as_tensor(v)).all())
+                 for v in (mass.mass_f, mass.mass_r))
+    print(f"  (d) NGP, mass type 2: likelihood force max |f| "
+          f"{force.abs().max().item()}, mass finite {finite}")
+    if force.any() or not finite:
+        raise RuntimeError("(d) the NGP likelihood force is not the zero field")
+    compare_psi("(d) Zel'dovich + NGP", posterior(g, conf_ngp.model, gp), one,
+                obs, g, dev)
+
+    g64 = GridSpec.cube(N_GRID // 2, BOX)
+    fields = {}
+    for gg in (g64, g):
+        P = torch.full(gg.rshape, 50.0, device=dev)
+        P[0, 0, 0] = 0.0
+        gen = torch.Generator(device=dev).manual_seed(41)
+        fields[gg.N1] = fourier.rfft3(random_fields.grf_resolution_independent(
+            gen, gg, P)) / gg.N
+    n = g64.N1
+    f = torch.arange(-(n // 2) + 1, n // 2, device=dev)
+    ix, iy = f[:, None, None], f[None, :, None]
+    iz = torch.arange(n // 2, device=dev)[None, None, :]
+    coarse = fields[n][ix % n, iy % n, iz]
+    fine = fields[g.N1][ix % g.N1, iy % g.N1, iz]
+    diff = (coarse - fine).abs()
+    same = bool((diff <= 1e-8 + 1e-4 * fine.abs()).all())
+    # the DC mode (P = 0) is rounding noise on both grids: the relative
+    # difference is printed over the others
+    live = fine.abs() > 1e-8
+    print(f"  (e) resolution-independent GRF, {n}^3 and {g.N1}^3 from one "
+          f"seed: {coarse.numel()} shared modes, max relative difference "
+          f"{(diff[live] / fine.abs()[live]).max().item():.3e} over the "
+          f"{int(live.sum())} with |mode| > 1e-8, max |diff| "
+          f"{diff.max().item():.3e} (rtol 1e-4, atol 1e-8) "
+          f"{'ok' if same else 'FAIL'}")
+    if not same:
+        raise RuntimeError("(e) the shared modes differ between the grids")
+    return errs
+
+
+REFERENCE_PAR = """\
+# the reference's data/input.par model (tests/test_reference_compat.py:
+# 39-50) at {n}^3, box {box}, with the internal EH98 spectrum
+Nx = {n}
+Lx = {box}
+sfmodel = 1
+masskernel = 3
+likelihood = 1
+mass_type = 1
+eps_fac_update_type = 3
+N_a_eps_update = 100
+acc_min = 0.6
+acc_max = 0.7
+random_test = true
+readPS = false
+seed = 1
+"""
 
 
 TILED_SRC = "barcode_tpu_torch/csrc/tsc_deposit_tiled.cu"
@@ -1376,6 +1703,26 @@ def main(argv=None):
         tmp_dirs.append(tempfile.mkdtemp(prefix="chip_smoke_"))
         launches, per_attempt = phase_path(dev, headline_conf(),
                                            tmp_dirs[-1])
+        clock.done()
+
+        clock.start("masskernels")
+        phase_masskernels(dev, inputs)
+        clock.done()
+
+        clock.start("options")
+        tmp_dirs.append(tempfile.mkdtemp(prefix="chip_smoke_"))
+        phase_options(dev, tmp_dirs[-1])
+        clock.done()
+
+        clock.start("radial_path")
+        tmp_dirs.append(tempfile.mkdtemp(prefix="chip_smoke_"))
+        phase_path(dev, radial_conf(), tmp_dirs[-1])
+        clock.done()
+
+        clock.start("sph_cli")
+        tmp_dirs.append(tempfile.mkdtemp(prefix="chip_smoke_"))
+        phase_cli256(dev, tmp_dirs[-1], par_text=REFERENCE_PAR.format(
+            n=N_GRID, box=BOX))
         clock.done()
 
         clock.start("kernels256")

@@ -102,9 +102,11 @@ def test_masskernel_sph_ft_parses(tmp_path):
     assert RunConfig.from_input_par(path).model.forward.masskernel == "sph_ft"
 
 
-def test_session_resume_and_restart_on_cpu(tmp_path, capsys):
+def session_resume_and_restart(tmp_path, capsys, input_par):
+    """A 16^3 session, a --resume with --profile, and a restart from
+    deltaLAG_2 + the performance log once the checkpoint is gone."""
     par = tmp_path / "input.par"
-    par.write_text(INPUT_PAR)
+    par.write_text(input_par)
     out = tmp_path / "run"
     common = [str(par), "--device", "cpu", "--chains", "2", "--no-dashboard",
               "--out", str(out)]
@@ -141,6 +143,37 @@ def test_session_resume_and_restart_on_cpu(tmp_path, capsys):
     ck3 = np.load(out / "checkpoint.npz")
     assert np.isfinite(ck3["state_psi"]).all()
     assert (ck3["state_accepted"] >= 3).all() and (out / "deltaLAG_3.dat").exists()
+
+
+def test_session_resume_and_restart_on_cpu(tmp_path, capsys):
+    session_resume_and_restart(tmp_path, capsys, INPUT_PAR)
+
+
+# the reference's own input.par (data/input.par: Zel'dovich, SPH mass
+# kernel, Gaussian likelihood) at 16^3; and the headline model with radial
+# RSD about a box corner (observer - origin = 0), the kernel deposit with
+# the tail split on positions that leave the box
+OPTION_PARS = {
+    "sph": INPUT_PAR.replace("sfmodel = 3", "sfmodel = 1").replace(
+        "masskernel = sph_ft", "masskernel = 3"),
+    "radial": INPUT_PAR + "planepar = false\nxobs = 100.0\nyobs = 100.0\n"
+              "zobs = 100.0\nxllc = 100.0\nyllc = 100.0\nzllc = 100.0\n",
+}
+
+
+@pytest.mark.parametrize("option", sorted(OPTION_PARS))
+def test_option_sessions_resume_and_restart_on_cpu(tmp_path, capsys, option):
+    conf = RunConfig.from_input_par(_write(tmp_path, OPTION_PARS[option]))
+    fc = conf.model.forward
+    assert (fc.masskernel, fc.rsd_planepar) == \
+        ((3, True) if option == "sph" else ("sph_ft", False))
+    session_resume_and_restart(tmp_path, capsys, OPTION_PARS[option])
+
+
+def _write(tmp_path, text):
+    path = tmp_path / "probe.par"
+    path.write_text(text)
+    return path
 
 
 def test_sharded_session_resume_and_restart_on_cpu(tmp_path, capsys):

@@ -559,6 +559,106 @@ def test_cuda_runner_goes_through_the_kernels(cuda, tmp_path):
     assert torch.isfinite(states.psi).all()
 
 
+MASS_CODES = [0, 1, 2, 3, "sph_ft"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("weighted", [False, True])
+@pytest.mark.parametrize("mk", MASS_CODES)
+def test_cuda_mass_kernels_are_deterministic_and_match_cpu(cuda, mk,
+                                                           weighted):
+    """Every windowless deposit of assign.deposit (32^3, 2 chains) gives
+    the same bits on every call on the card (fixed-point sums) and agrees
+    with the CPU within 2e-6 * max(1, max|ref|); its autograd position
+    gradient within 3e-5 * max|grad|."""
+    pos = positions(41, 0)
+    w = (torch.rand((2,) + G.shape, generator=torch.Generator().manual_seed(1))
+         + 0.5) if weighted else None
+    cot = torch.randn((2,) + G.shape, generator=torch.Generator().manual_seed(2))
+    h = G.cell_avg
+
+    def run(device):
+        p = pos.to(device).requires_grad_(True)
+        rho = assign.deposit(p, G, mk, h, None if w is None else w.to(device))
+        if rho.requires_grad:
+            (rho * cot.to(device)).sum().backward()
+        return rho.detach(), p.grad
+
+    rho, grad = run(cuda)
+    for _ in range(2):
+        assert torch.equal(run(cuda)[0], rho)
+    ref, ref_grad = run("cpu")
+    assert_close(rho.cpu(), ref)
+    if mk == 0:
+        assert grad is None and ref_grad is None
+    else:
+        assert_close(grad.cpu(), ref_grad, 3e-5)
+
+
+@pytest.mark.gpu
+def test_cuda_sph_deposit_where_the_norm_exceeds_one(cuda):
+    """Every particle piled onto one point of a 16^3 grid of 0.25 cells
+    (norm 1/(pi h^3) = 20.4), weight 7.5: the fixed-point sum does not
+    overflow, and equals the CPU's within float32 rounding."""
+    g = GridSpec.cube(16, 4.0)
+    pos = torch.full((3,) + g.shape, 0.3 * g.cell_avg)
+    w = torch.full(g.shape, 7.5)
+    out = assign.sph_deposit(pos.to(cuda), g, g.cell_avg, w.to(cuda))
+    ref = assign.sph_deposit(pos, g, g.cell_avg, w)
+    assert torch.isfinite(out).all() and out.max().item() > 0
+    torch.testing.assert_close(out.cpu(), ref, rtol=1e-6, atol=0)
+
+
+@pytest.mark.gpu
+def test_cuda_resolution_independent_draw_matches_cpu(cuda):
+    """The counter-based hash gives the same integers on the card as on
+    the CPU; the unit modes agree to float32 rounding."""
+    from barcode_tpu_torch import random_fields as rf
+
+    g = GridSpec.cube(32, 200.0)
+    fx, fy, fz = (f.expand(g.rshape) for f in rf._signed_freqs(g))
+    words = rf.threefry2x32((123, 456), fx & 0xFFFFFFFF, fy & 0xFFFFFFFF)
+    words_d = rf.threefry2x32((123, 456), fx.to(cuda) & 0xFFFFFFFF,
+                              fy.to(cuda) & 0xFFFFFFFF)
+    assert all(torch.equal(a, b.cpu()) for a, b in zip(words, words_d))
+    a = rf._unit_hermitian_modes(2**40 + 7, g)
+    b = rf._unit_hermitian_modes(2**40 + 7, g, cuda)
+    torch.testing.assert_close(b.cpu(), a, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.gpu
+def test_cuda_radial_kernel_deposit_matches_cpu(cuda):
+    """ALPT with radial RSD about a box corner through the kernel deposit
+    and the tail split (K1, K2 on positions outside the box) on the card
+    against the plain versions on the CPU: delta_eul and its gradient."""
+    from barcode_tpu_torch.forward.lag2eul import GrowthParams, lag2eul
+
+    fc = ForwardConfig(sfmodel=3, masskernel="sph_ft", rsd=True,
+                       rsd_planepar=False, observer=(20.0, 5.0, -3.0),
+                       origin=(20.0, 5.0, -3.0), pallas_deposit=True,
+                       pallas_halo=2, pallas_tail_k=512)
+    gp = GrowthParams(D1=1.0, D2=-3.0 / 7.0, ascale=1.0, cpecvel=52.85,
+                      hubble=100.0)
+    delta = 3.0 * torch.randn((2,) + G.shape,
+                              generator=torch.Generator().manual_seed(3))
+    cot = torch.randn((2,) + G.shape, generator=torch.Generator().manual_seed(4))
+
+    def run(device):
+        d = delta.to(device).requires_grad_(True)
+        out, pos = lag2eul(d, G, fc, gp, return_pos=True)
+        (out * cot.to(device)).sum().backward()
+        return out.detach().cpu(), d.grad.cpu(), pos.detach().cpu()
+
+    tk.tsc_deposit_window.launches = tk.tsc_gather_grads_window.launches = 0
+    out, grad, pos = run(cuda)
+    assert tk.tsc_deposit_window.launches == 1
+    assert tk.tsc_gather_grads_window.launches == 1
+    assert ((pos < 0) | (pos >= G.L1)).any()
+    ref, ref_grad, _ = run("cpu")
+    assert_close(out, ref, 1e-4)
+    assert_close(grad, ref_grad, 1e-4)
+
+
 def test_device_resolution_has_no_silent_fallback():
     assert device.resolve("cpu") == torch.device("cpu")
     if torch.cuda.is_available():
