@@ -3,8 +3,7 @@
 Port of barcode_tpu/config.py: the same dataclasses, defaults and
 `input.par` keys (parameter_inifile, reference barlib/src/ini_reader.cpp:
 15-41; INIT_PARAMS, init_par.cc:41-416), built on the port's ForwardConfig
-and ModelConfig.  The JAX package's bf16 kernel keys select TPU-only
-options: set to true they are refused here.
+and ModelConfig.
 """
 from __future__ import annotations
 
@@ -160,10 +159,6 @@ class RunConfig:
             raise ValueError("pallas_block_dep_y set without "
                              "pallas_block_dep_x; set both (or only _x for "
                              "a square block)")
-        for key in ("pallas_bf16_grad", "pallas_bf16_dep"):
-            if _get(p, key, bool, False):
-                raise NotImplementedError(f"{key}=true: the port's kernels "
-                                          "are float32 only")
         # masskernel: the reference's integer codes, or (an extension the
         # JAX package's parser lacks) "sph_ft", the closed-form W4 kernel
         # of the headline configuration
@@ -187,6 +182,8 @@ class RunConfig:
                           _get(p, "pallas_block_y", int, 8)),
             # deposit block: 0 -> auto ((16,16) when the grid divides it)
             pallas_block_dep=(dep_x, dep_y or dep_x) if dep_x else None,
+            pallas_bf16_grad=_get(p, "pallas_bf16_grad", bool, False),
+            pallas_bf16_dep=_get(p, "pallas_bf16_dep", bool, False),
             # halo-tail split: pallas_halo becomes a quantile bound and up
             # to this many contract violators per deposit are handled
             # exactly through the compacted XLA path (assign.py)

@@ -62,14 +62,10 @@ def chain_state(fields: Mapping, device=None) -> ChainState:
 
 def forward_config(fields: Mapping) -> ForwardConfig:
     """ForwardConfig from the JAX ForwardConfig's fields, halo as resolved
-    there.  TPU-only options must be at their defaults."""
-    names = {f.name for f in dataclasses.fields(ForwardConfig)}
-    tpu_only = {k: v for k, v in fields.items() if k not in names}
-    if any(v for v in tpu_only.values()):
-        raise ValueError(f"TPU-only forward options set: {tpu_only}")
-    kw = {k: (tuple(v) if isinstance(v, list) else v)
-          for k, v in fields.items() if k in names}
-    return ForwardConfig(**kw)
+    there (the two classes have the same fields; an unknown name raises
+    TypeError)."""
+    return ForwardConfig(**{k: (tuple(v) if isinstance(v, list) else v)
+                            for k, v in fields.items()})
 
 
 # ---------------------------------------------------------------------------

@@ -7,9 +7,10 @@
 // (barcode_tpu/forward/pallas_deposit.py:_phase_a): u = pos / d with an IEEE
 // division (build without fast-math), base = floor(u), frac = u - base - 0.5,
 // and the x/y base unwrapped to the particle's own row by the min-image
-// offset, so both kernels see the same cells and weights as the TPU kernels.
+// offset, so the kernels see the same cells and weights as the TPU kernels.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace tsc {
@@ -62,31 +63,14 @@ __device__ __forceinline__ int unwrap(int b, int q, int n) {
   return q + off - n * floor_div(2 * off + n, 2 * n);
 }
 
-// One axis of the DEPOSIT window rule (K1).  Output block I owns cells
-// [I*B, I*B + B) and sums the particles whose (periodic copy of the)
-// Lagrangian row lies in [I*B - h, I*B + B + h).  For the target X = bu + o,
-// the copy shifted by s = wrap(X) - X is the one that lands in range, so the
-// tap counts iff q + s lies in the window of the block owning wrap(X).
-__device__ __forceinline__ void deposit_axis(int bu, int q, int n, int B,
-                                             int h, int o, int* target,
-                                             bool* in_window) {
-  int X = bu + o;
-  int Xw = pos_mod(X, n);
-  int qq = q + (Xw - X);
-  int lo = (Xw / B) * B - h;
-  *target = Xw;
-  *in_window = (qq >= lo) && (qq < lo + B + 2 * h);
-}
-
-// One axis of the GATHER window rule (K2): the particle's own block
-// I = q / B reads the field window [I*B - h, I*B + B + h) (unwrapped).
-__device__ __forceinline__ void gather_axis(int bu, int q, int n, int B,
-                                            int h, int o, int* target,
-                                            bool* in_window) {
-  int X = bu + o;
-  int lo = (q / B) * B - h;
-  *target = pos_mod(X, n);
-  *in_window = (X >= lo) && (X < lo + B + 2 * h);
+// x rounded to bfloat16, round to nearest even, and back to float32 when
+// BF16 (the TPU kernels' bf16 operands, pallas_deposit.py:230-233 and
+// :349, :398-401); x itself otherwise.  A product of two rounded values is
+// exact in float32 (8-bit significands).
+template <bool BF16>
+__device__ __forceinline__ float bf16_round(float x) {
+  if (BF16) return __bfloat162float(__float2bfloat16_rn(x));
+  return x;
 }
 
 // The gather's per-particle arithmetic (K2, K4): the TSC weights and their
@@ -95,13 +79,17 @@ __device__ __forceinline__ void gather_axis(int bu, int q, int n, int B,
 // order, rows outside the window (mx, my) skipped; the derivatives divided
 // by the cell size.  `tap(a, b, k)` reads the field at offset (a-1, b-1,
 // k-1).  Every rounding is pinned (__fmaf_rn, __fmul_rn; the IEEE division
-// of a build without fast-math), so each kernel that includes this header
-// gets the same bits whatever its context lets the compiler contract.
+// of a build without fast-math), so each call site gets the same bits
+// whatever its context lets the compiler contract.  With BF16 the z
+// weights, their derivatives and the field's taps are rounded to bfloat16
+// before the z contraction, as the TPU's z-first body rounds its MXU
+// operands (pallas_deposit.py:349, :398-401); everything after it stays
+// float32.
 struct Gathered {
   float val, gx, gy, gz;
 };
 
-template <class Tap>
+template <bool BF16, class Tap>
 __device__ __forceinline__ Gathered gather_taps(float fx, float fy, float fz,
                                                 const bool (&mx)[3],
                                                 const bool (&my)[3], float d1,
@@ -113,10 +101,10 @@ __device__ __forceinline__ Gathered gather_taps(float fx, float fy, float fz,
     const int o = k - 1;
     wx[k] = tsc_w(fx, o);
     wy[k] = tsc_w(fy, o);
-    wz[k] = tsc_w(fz, o);
+    wz[k] = bf16_round<BF16>(tsc_w(fz, o));
     dwx[k] = tsc_dw(fx, o);
     dwy[k] = tsc_dw(fy, o);
-    dwz[k] = tsc_dw(fz, o);
+    dwz[k] = bf16_round<BF16>(tsc_dw(fz, o));
   }
   float val = 0.0f, gx = 0.0f, gy = 0.0f, gz = 0.0f;
 #pragma unroll
@@ -128,7 +116,7 @@ __device__ __forceinline__ Gathered gather_taps(float fx, float fy, float fz,
       float s = 0.0f, sd = 0.0f;
 #pragma unroll
       for (int k = 0; k < 3; ++k) {
-        const float v = tap(a, b, k);
+        const float v = bf16_round<BF16>(tap(a, b, k));
         s = __fmaf_rn(wz[k], v, s);
         sd = __fmaf_rn(dwz[k], v, sd);
       }

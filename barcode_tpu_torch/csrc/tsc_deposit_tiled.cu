@@ -7,14 +7,16 @@
 // when its VMEM budget overflows, so on Hopper one kernel serves both) and
 // tsc_deposit_pallas_slab (both bodies, calls :716 and :734).
 //
-// The function is that of csrc/tsc_deposit.cu (dense) and
-// csrc/tsc_deposit_slab.cu (slab), bit for bit: the same phase-A arithmetic
-// (tsc_common.cuh), the same window rule per tap, the same per-tap rounding
-// __double2ll_rn((double)(wxy * wz) * scale) into a 64-bit fixed point at
-// the caller's scale, integer sums (so the order of the additions does not
-// matter), the same float conversion, NaN for a chain with a non-finite
-// particle, and zero-weight particles skipped.  The two geometries differ
-// only in x, so the kernel is a template over an x rule:
+// The function: the phase-A arithmetic of tsc_common.cuh, the TPU kernels'
+// window rule per tap, the per-tap rounding __double2ll_rn((double)(wxy *
+// wz) * scale) into a 64-bit fixed point at the caller's scale, integer sums
+// (so the order of the additions does not matter), the float conversion,
+// NaN for a chain with a non-finite particle, and zero-weight particles
+// skipped.  With BF16 (the TPU kernels' `bf16` option, pallas_deposit.py:
+// 230-233) the tap weight is bf16(wx * wy) * bf16(wm * wz), each factor
+// rounded to bfloat16 (round to nearest even) and the product, exact, taken
+// in float32, as the TPU's bf16 MXU dot forms it.  The two geometries
+// differ only in x, so the kernel is a template over an x rule:
 //   * DenseX: periodic x through K1's deposit window rule (deposit_axis);
 //   * SlabX: extended rows [0, n1_loc + 2h), the particle's row unwrapped
 //     to the slab and shifted by +h, the block window in extended rows,
@@ -23,7 +25,7 @@
 //
 // What bounds it on an H100: memory, as K1 — the function must read pos
 // (12 B) and the weight (4 B) and write the output (4 B) per particle.  The
-// push designs it replaces spent 27 global 64-bit atomics per particle,
+// push designs it replaced spent 27 global 64-bit atomics per particle,
 // which run at the L2's atomic rate, not at the memory's.
 //
 // Design: one block of 512 threads takes a fixed Lagrangian tile of 16^3
@@ -84,7 +86,7 @@ struct DenseX {
   __device__ __forceinline__ int target(int X) const { return wrap(X, N1); }
 };
 
-// the slab's x (csrc/tsc_deposit_slab.cu): extended rows, nothing wraps
+// the slab's x (K3): extended rows, nothing wraps
 struct SlabX {
   int N1, start, h, BX, n1_ext;
   __device__ __forceinline__ int base(int bx, int r) const {
@@ -173,8 +175,9 @@ __device__ __forceinline__ Particle load(const Tile& tile, const float* p,
 }
 
 // 3. the taps of the block's particles, into the box or, outside it, into
-// the global accumulator
-template <bool FLOAT_SCALE, class XRule>
+// the global accumulator; with BF16 each tap weighs bf16(wx * wy) *
+// bf16(wm * wz)
+template <bool FLOAT_SCALE, bool BF16, class XRule>
 __device__ __forceinline__ void deposit_taps(
     const float* p, const float* w, long long N, const XRule& xr,
     const Tile& tile, int R, int N2, int N3, float d1, float d2, float d3,
@@ -211,7 +214,7 @@ __device__ __forceinline__ void deposit_taps(
       iz[k] = (unsigned)(b2 + o) - (unsigned)lo2 < (unsigned)E2;
       wx[k] = tsc::tsc_w(f0, o);
       wy[k] = tsc::tsc_w(f1, o);
-      wz[k] = wm * tsc::tsc_w(f2, o);
+      wz[k] = tsc::bf16_round<BF16>(wm * tsc::tsc_w(f2, o));
     }
     const int rx = b0 - 1 - lo0, ry = b1 - 1 - lo1, rz = b2 - 1 - lo2;
     // the whole 3 x 3 x 3 stencil inside the box: no per-tap test (on an
@@ -226,7 +229,7 @@ __device__ __forceinline__ void deposit_taps(
 #pragma unroll
         for (int bb = 0; bb < 3; ++bb) {
           if (!my[bb]) continue;
-          const float wxy = wx[a] * wy[bb];
+          const float wxy = tsc::bf16_round<BF16>(wx[a] * wy[bb]);
           unsigned long long* row = cell + (a * E1 + bb) * E2;
 #pragma unroll
           for (int k = 0; k < 3; ++k)
@@ -242,7 +245,7 @@ __device__ __forceinline__ void deposit_taps(
 #pragma unroll
       for (int bb = 0; bb < 3; ++bb) {
         if (!my[bb]) continue;
-        const float wxy = wx[a] * wy[bb];
+        const float wxy = tsc::bf16_round<BF16>(wx[a] * wy[bb]);
         const bool in_xy = ix[a] && iy[bb];
         const int row = ((rx + a) * E1 + (ry + bb)) * E2 + rz;
         unsigned long long* grow =
@@ -264,7 +267,7 @@ __device__ __forceinline__ void deposit_taps(
 // blockIdx.x = tile (z fastest, then y, then x), blockIdx.y = chain.  R is
 // the particle grid's x extent (N1 dense, n1_loc slab), out_rows the
 // output's (N1 dense, n1_loc + 2h slab).
-template <class XRule>
+template <class XRule, bool BF16>
 __global__ void __launch_bounds__(THREADS, 2) tsc_deposit_tiled_kernel(
     const float* __restrict__ pos, const float* __restrict__ weights,
     const double* __restrict__ scale_p, unsigned long long* __restrict__ acc,
@@ -318,11 +321,11 @@ __global__ void __launch_bounds__(THREADS, 2) tsc_deposit_tiled_kernel(
   const double scale = *scale_p;
   const bool pow2x = (BX & (BX - 1)) == 0, pow2y = (BY & (BY - 1)) == 0;
   if (scale >= 1.0 && scale <= 0x1p126)
-    deposit_taps<true>(p, w, N, xr, tile, R, N2, N3, d1, d2, d3, BY, hy,
+    deposit_taps<true, BF16>(p, w, N, xr, tile, R, N2, N3, d1, d2, d3, BY, hy,
                        pow2x, pow2y, scale, box, out, lo0, lo1, lo2, E0, E1,
                        E2);
   else
-    deposit_taps<false>(p, w, N, xr, tile, R, N2, N3, d1, d2, d3, BY, hy,
+    deposit_taps<false, BF16>(p, w, N, xr, tile, R, N2, N3, d1, d2, d3, BY, hy,
                         pow2x, pow2y, scale, box, out, lo0, lo1, lo2, E0, E1,
                         E2);
   __syncthreads();
@@ -359,9 +362,9 @@ __global__ void tiled_fixed_to_float_kernel(
 // the kernel's attributes: `cap` cells of dynamic shared memory, and the
 // whole of the SM's unified L1/shared memory given to shared memory (the
 // runtime's default carveout may leave room for one block only)
-template <class XRule>
+template <class XRule, bool BF16>
 cudaError_t configure(int cap) {
-  auto kernel = tsc_deposit_tiled_kernel<XRule>;
+  auto kernel = tsc_deposit_tiled_kernel<XRule, BF16>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       cap * (int)sizeof(unsigned long long));
@@ -371,23 +374,51 @@ cudaError_t configure(int cap) {
                               (int)cudaSharedmemCarveoutMaxShared);
 }
 
-template <class XRule>
+template <class XRule, bool BF16>
 cudaError_t launch(const float* pos, const float* weights,
                    const double* scale_p, unsigned long long* acc, int* bad,
                    const XRule& xr, int C, int R, int N2, int N3,
                    int out_rows, float d1, float d2, float d3, int BX, int BY,
                    int hy, int cap, cudaStream_t s) {
-  cudaError_t err = configure<XRule>(cap);
+  cudaError_t err = configure<XRule, BF16>(cap);
   if (err != cudaSuccess) return err;
   const unsigned tiles = (unsigned)(((R + TX - 1) / TX) *
                                     ((N2 + TY - 1) / TY) *
                                     ((N3 + TZ - 1) / TZ));
-  tsc_deposit_tiled_kernel<XRule>
+  tsc_deposit_tiled_kernel<XRule, BF16>
       <<<dim3(tiles, (unsigned)C), THREADS,
          cap * sizeof(unsigned long long), s>>>(
           pos, weights, scale_p, acc, bad, xr, R, N2, N3, out_rows, d1, d2,
           d3, BX, BY, hy, cap);
   return cudaGetLastError();
+}
+
+// Launches the (XRule, BF16) instance; `bf16` picks BF16 at run time.
+template <class XRule>
+cudaError_t launch_any(bool bf16, const float* pos, const float* weights,
+                       const double* scale_p, unsigned long long* acc,
+                       int* bad, const XRule& xr, int C, int R, int N2,
+                       int N3, int out_rows, float d1, float d2, float d3,
+                       int BX, int BY, int hy, int cap, cudaStream_t s) {
+  return bf16 ? launch<XRule, true>(pos, weights, scale_p, acc, bad, xr, C, R,
+                                    N2, N3, out_rows, d1, d2, d3, BX, BY, hy,
+                                    cap, s)
+              : launch<XRule, false>(pos, weights, scale_p, acc, bad, xr, C,
+                                     R, N2, N3, out_rows, d1, d2, d3, BX, BY,
+                                     hy, cap, s);
+}
+
+// resident blocks an SM of the (XRule, BF16) instance, or a negative CUDA
+// error code
+template <class XRule, bool BF16>
+int blocks_per_sm(int cap) {
+  cudaError_t err = configure<XRule, BF16>(cap);
+  int n = 0;
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &n, tsc_deposit_tiled_kernel<XRule, BF16>, THREADS,
+        cap * sizeof(unsigned long long));
+  return err == cudaSuccess ? n : -(int)err;
 }
 
 }  // namespace
@@ -397,25 +428,26 @@ cudaError_t launch(const float* pos, const float* weights,
 // on the device (tsc_kernels._fixed_point_scale); out: C*out_rows*N2*N3
 // floats.  slab = 0: the dense grid (R = out_rows = N1; `start` unused);
 // slab = 1: slab rows [start, start + R) into out_rows = R + 2*hx extended
-// rows, with hx = hy = h.  `cap` is the box's cells (cap * 8 bytes of
-// dynamic shared memory, cap < 2^16).  One block takes TX x TY x TZ
-// particles.  Returns the first CUDA error of the launches.
+// rows, with hx = hy = h.  bf16 = 1: the bfloat16 tap weights.  `cap` is
+// the box's cells (cap * 8 bytes of dynamic shared memory, cap < 2^16).
+// One block takes TX x TY x TZ particles.  Returns the first CUDA error of
+// the launches.
 extern "C" int tsc_deposit_tiled_launch(
     const float* pos, const float* weights, const double* scale_p,
     unsigned long long* acc, int* bad, float* out, int C, int R, int N1,
     int N2, int N3, float d1, float d2, float d3, int start, int BX, int BY,
-    int hx, int hy, int slab, int cap, void* stream) {
+    int hx, int hy, int slab, int bf16, int cap, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   const int out_rows = slab ? R + 2 * hx : N1;
   cudaError_t err;
   if (slab) {
     const SlabX xr{N1, start, hx, BX, out_rows};
-    err = launch(pos, weights, scale_p, acc, bad, xr, C, R, N2, N3, out_rows,
-                 d1, d2, d3, BX, BY, hy, cap, s);
+    err = launch_any(bf16 != 0, pos, weights, scale_p, acc, bad, xr, C, R,
+                     N2, N3, out_rows, d1, d2, d3, BX, BY, hy, cap, s);
   } else {
     const DenseX xr{N1, BX, hx};
-    err = launch(pos, weights, scale_p, acc, bad, xr, C, R, N2, N3, out_rows,
-                 d1, d2, d3, BX, BY, hy, cap, s);
+    err = launch_any(bf16 != 0, pos, weights, scale_p, acc, bad, xr, C, R,
+                     N2, N3, out_rows, d1, d2, d3, BX, BY, hy, cap, s);
   }
   if (err != cudaSuccess) return (int)err;
   const long long n_chain = (long long)out_rows * N2 * N3;
@@ -426,18 +458,18 @@ extern "C" int tsc_deposit_tiled_launch(
   return (int)cudaGetLastError();
 }
 
-// Blocks of the dense (slab = 0) or slab kernel resident on one SM at a box
-// of `cap` cells, as the occupancy calculator reports it; a negative CUDA
-// error code on failure.
-extern "C" int tsc_deposit_tiled_blocks_per_sm(int cap, int slab) {
-  cudaError_t err = slab ? configure<SlabX>(cap) : configure<DenseX>(cap);
-  int n = 0;
-  if (err == cudaSuccess) {
-    const size_t smem = cap * sizeof(unsigned long long);
-    err = slab ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                     &n, tsc_deposit_tiled_kernel<SlabX>, THREADS, smem)
-               : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                     &n, tsc_deposit_tiled_kernel<DenseX>, THREADS, smem);
-  }
-  return err == cudaSuccess ? n : -(int)err;
+// Blocks of the dense (slab = 0) or slab kernel, float32 (bf16 = 0) or
+// bfloat16 taps, resident on one SM at a box of `cap` cells, as the
+// occupancy calculator reports it; a negative CUDA error code on failure.
+extern "C" int tsc_deposit_tiled_blocks_per_sm(int cap, int slab, int bf16) {
+  if (slab)
+    return bf16 ? blocks_per_sm<SlabX, true>(cap)
+                : blocks_per_sm<SlabX, false>(cap);
+  return bf16 ? blocks_per_sm<DenseX, true>(cap)
+              : blocks_per_sm<DenseX, false>(cap);
+}
+
+// Name of a CUDA error code returned by a launch function.
+extern "C" const char* tsc_cuda_error_string(int status) {
+  return cudaGetErrorString((cudaError_t)status);
 }

@@ -7,12 +7,15 @@
 // _make_gather_kernel, which compute one function) and
 // tsc_gather_grads_pallas_slab (call :770).
 //
-// The function is that of csrc/tsc_gather.cu (dense) and
-// csrc/tsc_gather_slab.cu (slab), bit for bit: the same phase A
-// (tsc_common.cuh), the same window rule per tap, the same field cells and
-// the same per-particle arithmetic (tsc::gather_taps, which both of them
-// compile too).  The two geometries differ only in x, so the kernel is a
-// template over an x rule:
+// The function: the phase A of tsc_common.cuh, the TPU kernels' window rule
+// per tap, and the per-particle arithmetic of tsc::gather_taps, every
+// rounding pinned, so each particle's outputs are the same bits whichever
+// path (box or device memory) reads its taps.  With BF16 (the TPU kernels'
+// `bf16` option) gather_taps rounds the field's taps, the z weights and
+// their derivatives to bfloat16 before the z contraction, as the TPU's
+// z-first body rounds its MXU operands (pallas_deposit.py:349, :398-401).
+// The two geometries differ only in x, so the kernel is a template over an
+// x rule:
 //   * DenseX: periodic x, K2's gather window rule (the particle's own block
 //     I = q / BX reads the window [I*BX - h, I*BX + BX + h));
 //   * SlabX: the particle's row unwrapped to the slab, the window around
@@ -23,9 +26,9 @@
 //
 // What bounds it on an H100: bytes in principle — pos (12 B), the field
 // (4 B) and 3 gradients (12 B) a particle.  The one-thread-a-particle
-// kernels it replaces are bound by instruction issue: a 64-bit division per
-// index, about fifteen 32-bit divisions or modulos a particle in the window
-// rules, and 27 scattered loads, each behind its mask.  This kernel runs
+// kernels it replaced were bound by their instruction count: a 64-bit
+// division per index, about fifteen 32-bit divisions or modulos a particle
+// in the window rules, and 27 scattered loads, each behind its mask.  This kernel runs
 // at about 4x its bytes bound on an H100 (PERF.md): its taps are bound by
 // issue, and its barrier phases (positions, box, fill) and the particles
 // outside the box add to them, with two blocks an SM to overlap them.
@@ -44,7 +47,7 @@
 //      bytes a copy where the rows allow it.
 //   1. Each thread divides its 8 particles' by the cell (u = pos / d, kept
 //      in place for steps 3 and 4) and finds their base cells, x and y
-//      unwrapped to the particle's row as the witnesses unwrap them, z
+//      unwrapped to the particle's row (tsc::unwrap), z
 //      likewise; the block reduces the cells of its finite, near particles
 //      into a box [min - 1, max + 1] per axis, cut to `cap` cells
 //      (tsc_tiled.cuh's block_box), its z range in whole 16-byte chunks.
@@ -56,8 +59,8 @@
 //      wrapped targets needed).  Any other (far flung, a cut box,
 //      non-finite) is put on a list.
 //   4. The listed particles, packed into whole warps instead of diverging
-//      inside them, read their taps from device memory as the witnesses
-//      do.
+//      inside them, read their taps from device memory at their wrapped
+//      targets.
 // Every integer helper is exact for every input (tsc_tiled.cuh), and each
 // output is written by one thread, so the result is deterministic.  With
 // `taps` non-null, the kernel also counts the taps inside the windows and
@@ -104,7 +107,7 @@ struct DenseX {
   __device__ __forceinline__ int row(int x) const { return wrap(x, N1); }
 };
 
-// the slab's x (csrc/tsc_gather_slab.cu): the base's extended row (the
+// the slab's x (K4): the base's extended row (the
 // slab-local base, own row + min-image offset, shifted by +h)
 struct SlabX {
   int N1, start, h, BX, n1_ext;
@@ -169,9 +172,9 @@ __device__ __forceinline__ void fill_box(float* box, const float* f,
   }
 }
 
-// A particle's cells from u = pos / d: the fractions, the witnesses' wrapped
-// z base `bz`, and the box coordinates (b0, b1, b2): x and y unwrapped to
-// the row as the witnesses unwrap them, z unwrapped likewise (congruent to
+// A particle's cells from u = pos / d: the fractions, the wrapped z base
+// `bz`, and the box coordinates (b0, b1, b2): x and y unwrapped to the row
+// (tsc::unwrap), z unwrapped likewise (congruent to
 // bz).  `near`: finite, with |u| < 2^30 in x and y, where no base overflows
 // and the unwrapped cells lie within half a grid of the particle's row.
 struct Cell {
@@ -212,8 +215,8 @@ __device__ __forceinline__ void store(const tsc::Gathered& res, float* o,
 // blockIdx.x = tile (z fastest, then y, then x), blockIdx.y = chain.  R is
 // the particle grid's x extent (N1 dense, n1_loc slab), field_rows the
 // field's (N1 dense, n1_loc + 2h slab).  vec: 16-byte copies of the
-// positions and the box's cells.
-template <class XRule>
+// positions and the box's cells.  BF16: the bfloat16 z contraction.
+template <class XRule, bool BF16>
 __global__ void __launch_bounds__(THREADS, 2) tsc_gather_tiled_kernel(
     const float* __restrict__ field, const float* __restrict__ pos,
     float* __restrict__ out, unsigned long long* __restrict__ taps,
@@ -329,7 +332,7 @@ __global__ void __launch_bounds__(THREADS, 2) tsc_gather_tiled_kernel(
     }
     const float* cell = box + (rx * E[1] + ry) * E[2] + rz;
     const int e1 = E[1], e2 = E[2];
-    store(tsc::gather_taps(cl.f0, cl.f1, cl.f2, mxk, myk, d1, d2, d3,
+    store(tsc::gather_taps<BF16>(cl.f0, cl.f1, cl.f2, mxk, myk, d1, d2, d3,
                            [&](int a, int b, int k) {
                              return cell[(a * e1 + b) * e2 + k];
                            }),
@@ -340,7 +343,7 @@ __global__ void __launch_bounds__(THREADS, 2) tsc_gather_tiled_kernel(
   __syncthreads();
 
   // 4. the listed particles, packed into whole warps: their taps from
-  // device memory, as the witnesses read them
+  // device memory
   const int nf = n_far;
 #pragma unroll 1
   for (int m = threadIdx.x; m < nf; m += THREADS) {
@@ -359,7 +362,7 @@ __global__ void __launch_bounds__(THREADS, 2) tsc_gather_tiled_kernel(
       myk[k] = gather_axis(cl.b1, qy, N2, BY, pow2y, hy, o, &ty[k]);
       tz[k] = wrap(cl.bz + o, N3);
     }
-    const tsc::Gathered res = tsc::gather_taps(
+    const tsc::Gathered res = tsc::gather_taps<BF16>(
         cl.f0, cl.f1, cl.f2, mxk, myk, d1, d2, d3, [&](int a, int b, int k) {
           return __ldg(f + ((long long)tx[a] * N2 + ty[b]) * N3 + tz[k]);
         });
@@ -390,9 +393,9 @@ size_t smem_bytes(int cap) {
 
 // the kernel's attributes: its dynamic shared memory, and the whole of the
 // SM's unified L1/shared memory given to shared memory
-template <class XRule>
+template <class XRule, bool BF16>
 cudaError_t configure(int cap) {
-  auto kernel = tsc_gather_tiled_kernel<XRule>;
+  auto kernel = tsc_gather_tiled_kernel<XRule, BF16>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem_bytes(cap));
@@ -403,32 +406,47 @@ cudaError_t configure(int cap) {
 }
 
 // resident blocks an SM, or a negative CUDA error code
-template <class XRule>
+template <class XRule, bool BF16>
 int blocks_per_sm(int cap) {
-  cudaError_t err = configure<XRule>(cap);
+  cudaError_t err = configure<XRule, BF16>(cap);
   int n = 0;
   if (err == cudaSuccess)
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &n, tsc_gather_tiled_kernel<XRule>, THREADS, smem_bytes(cap));
+        &n, tsc_gather_tiled_kernel<XRule, BF16>, THREADS, smem_bytes(cap));
   return err == cudaSuccess ? n : -(int)err;
 }
 
-template <class XRule>
+template <class XRule, bool BF16>
 cudaError_t launch(const float* field, const float* pos, float* out,
                    unsigned long long* taps, const XRule& xr, int C, int R,
                    int N2, int N3, int field_rows, float d1, float d2,
                    float d3, int BY, int hy, int want_value, int cap, int vec,
                    cudaStream_t s) {
-  cudaError_t err = configure<XRule>(cap);
+  cudaError_t err = configure<XRule, BF16>(cap);
   if (err != cudaSuccess) return err;
   const unsigned tiles = (unsigned)(((R + TX - 1) / TX) *
                                     ((N2 + TY - 1) / TY) *
                                     ((N3 + TZ - 1) / TZ));
-  tsc_gather_tiled_kernel<XRule>
+  tsc_gather_tiled_kernel<XRule, BF16>
       <<<dim3(tiles, (unsigned)C), THREADS, smem_bytes(cap), s>>>(
           field, pos, out, taps, xr, R, N2, N3, field_rows, d1, d2, d3, BY,
           hy, want_value, cap, vec);
   return cudaGetLastError();
+}
+
+// Launches the (XRule, BF16) instance; `bf16` picks BF16 at run time.
+template <class XRule>
+cudaError_t launch_any(bool bf16, const float* field, const float* pos,
+                       float* out, unsigned long long* taps, const XRule& xr,
+                       int C, int R, int N2, int N3, int field_rows,
+                       float d1, float d2, float d3, int BY, int hy,
+                       int want_value, int cap, int vec, cudaStream_t s) {
+  return bf16 ? launch<XRule, true>(field, pos, out, taps, xr, C, R, N2, N3,
+                                    field_rows, d1, d2, d3, BY, hy,
+                                    want_value, cap, vec, s)
+              : launch<XRule, false>(field, pos, out, taps, xr, C, R, N2, N3,
+                                     field_rows, d1, d2, d3, BY, hy,
+                                     want_value, cap, vec, s);
 }
 
 }  // namespace
@@ -436,15 +454,16 @@ cudaError_t launch(const float* field, const float* pos, float* out,
 // field: (C, N1, N2, N3) dense or (C, R + 2*hx, N2, N3) slab; pos: (C, 3, R,
 // N2, N3) float32; out: (C, want_value ? 4 : 3, R, N2, N3).  slab = 0: the
 // dense grid (R = N1; `start` unused); slab = 1: slab rows [start, start +
-// R) of the extended buffer, with hx = hy = h.  `cap` is the box's cells
-// (cap < 2^16).  `taps` is null, or two zeroed counters: the taps inside
-// the windows read from device memory, and all taps inside the windows.  A
-// tile is TX x TY x TZ particles.  Returns the launch's CUDA error.
+// R) of the extended buffer, with hx = hy = h.  bf16 = 1: the bfloat16 z
+// contraction.  `cap` is the box's cells (cap < 2^16).  `taps` is null, or
+// two zeroed counters: the taps inside the windows read from device memory,
+// and all taps inside the windows.  A tile is TX x TY x TZ particles.
+// Returns the launch's CUDA error.
 extern "C" int tsc_gather_tiled_launch(
     const float* field, const float* pos, float* out,
     unsigned long long* taps, int C, int R, int N1, int N2, int N3, float d1,
     float d2, float d3, int start, int BX, int BY, int hx, int hy, int slab,
-    int want_value, int cap, void* stream) {
+    int bf16, int want_value, int cap, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   // 16-byte copies where every row of the field and the positions is
   // 16-byte aligned and the tiles hold whole z rows
@@ -452,17 +471,23 @@ extern "C" int tsc_gather_tiled_launch(
                   (uintptr_t)field % 16 == 0 && (uintptr_t)pos % 16 == 0;
   if (slab) {
     const SlabX xr{N1, start, hx, BX, R + 2 * hx};
-    return (int)launch(field, pos, out, taps, xr, C, R, N2, N3, R + 2 * hx,
-                       d1, d2, d3, BY, hy, want_value, cap, vec, s);
+    return (int)launch_any(bf16 != 0, field, pos, out, taps, xr, C, R, N2,
+                           N3, R + 2 * hx, d1, d2, d3, BY, hy, want_value,
+                           cap, vec, s);
   }
   const DenseX xr{N1, BX, hx};
-  return (int)launch(field, pos, out, taps, xr, C, R, N2, N3, N1, d1, d2, d3,
-                     BY, hy, want_value, cap, vec, s);
+  return (int)launch_any(bf16 != 0, field, pos, out, taps, xr, C, R, N2, N3,
+                         N1, d1, d2, d3, BY, hy, want_value, cap, vec, s);
 }
 
-// Blocks of the dense (slab = 0) or slab kernel resident on one SM at a box
-// of `cap` cells, as the occupancy calculator reports it; a negative CUDA
-// error code on failure.
-extern "C" int tsc_gather_tiled_blocks_per_sm(int cap, int slab) {
-  return slab ? blocks_per_sm<SlabX>(cap) : blocks_per_sm<DenseX>(cap);
+// Blocks of the dense (slab = 0) or slab kernel, float32 (bf16 = 0) or
+// bfloat16 z contraction, resident on one SM at a box of `cap` cells, as
+// the occupancy calculator reports it; a negative CUDA error code on
+// failure.
+extern "C" int tsc_gather_tiled_blocks_per_sm(int cap, int slab, int bf16) {
+  if (slab)
+    return bf16 ? blocks_per_sm<SlabX, true>(cap)
+                : blocks_per_sm<SlabX, false>(cap);
+  return bf16 ? blocks_per_sm<DenseX, true>(cap)
+              : blocks_per_sm<DenseX, false>(cap);
 }

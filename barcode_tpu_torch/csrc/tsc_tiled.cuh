@@ -3,7 +3,7 @@
 // division, the block's Lagrangian tile, and the box of cells it stages in
 // shared memory.
 //
-// Every helper here gives the result of tsc_common.cuh's form for every
+// `wrap` and `unwrap` give the result of tsc_common.cuh's forms for every
 // input: a fast path where the argument lies near the grid, as every finite
 // particle's does, and that form as the fallback elsewhere.
 #pragma once
@@ -48,7 +48,11 @@ __device__ __forceinline__ int block_start(int x, int B, bool pow2) {
   return pow2 ? (x & -B) : (x / B) * B;
 }
 
-// One axis of the deposit window rule, tsc::deposit_axis without divisions
+// One axis of the DEPOSIT window rule (K1).  Output block I owns cells
+// [I*B, I*B + B) and sums the particles whose (periodic copy of the)
+// Lagrangian row lies in [I*B - h, I*B + B + h).  For the target X = bu + o,
+// the copy shifted by s = wrap(X) - X is the one that lands in range, so the
+// tap counts iff q + s lies in the window of the block owning wrap(X).
 __device__ __forceinline__ bool deposit_axis(int bu, int q, int n, int B,
                                              bool pow2, int h, int o,
                                              int* target) {
@@ -60,8 +64,9 @@ __device__ __forceinline__ bool deposit_axis(int bu, int q, int n, int B,
   return qq >= lo && qq < lo + B + 2 * h;
 }
 
-// One axis of the gather window rule, tsc::gather_axis without divisions:
-// whether the tap at bu + o lies in the window of q's block
+// One axis of the GATHER window rule (K2): the particle's own block
+// I = q / B reads the field window [I*B - h, I*B + B + h) (unwrapped);
+// whether the tap at bu + o lies in it
 __device__ __forceinline__ bool gather_window(int bu, int q, int B, bool pow2,
                                               int h, int o) {
   const int X = bu + o;

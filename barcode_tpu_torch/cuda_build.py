@@ -25,9 +25,7 @@ import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("tsc_deposit_tiled.cu", "tsc_gather_tiled.cu", "tsc_deposit.cu",
-           "tsc_deposit_stream.cu", "tsc_gather.cu", "tsc_deposit_slab.cu",
-           "tsc_gather_slab.cu")
+SOURCES = ("tsc_deposit_tiled.cu", "tsc_gather_tiled.cu")
 HEADERS = ("tsc_common.cuh", "tsc_tiled.cuh")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 COMPILE_FLAGS = ARCH_FLAGS + ("-O3", "-std=c++17", "-Xcompiler", "-fPIC",
@@ -40,23 +38,12 @@ _F = ctypes.c_float
 SIGNATURES = {
     "tsc_deposit_tiled_launch":
         [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _F, _I, _I, _I,
-         _I, _I, _I, _I, _P],
+         _I, _I, _I, _I, _I, _P],
     "tsc_gather_tiled_launch":
         [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _F, _I, _I, _I, _I, _I,
-         _I, _I, _I, _P],
-    "tsc_deposit_window_launch":
-        [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _I, _I, _I, _I,
-         _P],
-    "tsc_deposit_stream_launch":
-        [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _I, _I, _I, _I, _I,
-         _I, _P],
-    "tsc_gather_grads_window_launch":
-        [_P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _I, _I, _I, _I, _I, _P],
-    "tsc_deposit_slab_launch":
-        [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _F, _I, _I, _I,
-         _I, _P],
-    "tsc_gather_grads_slab_launch":
-        [_P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _F, _I, _I, _I, _I, _I, _P],
+         _I, _I, _I, _I, _P],
+    "tsc_deposit_tiled_blocks_per_sm": [_I, _I, _I],
+    "tsc_gather_tiled_blocks_per_sm": [_I, _I, _I],
 }
 
 
@@ -151,10 +138,6 @@ def load() -> tuple[ctypes.CDLL, BuildInfo]:
         for fn, argtypes in SIGNATURES.items():
             getattr(lib, fn).argtypes = argtypes
             getattr(lib, fn).restype = ctypes.c_int
-        lib.tsc_deposit_tiled_blocks_per_sm.argtypes = [_I, _I]
-        lib.tsc_deposit_tiled_blocks_per_sm.restype = ctypes.c_int
-        lib.tsc_gather_tiled_blocks_per_sm.argtypes = [_I, _I]
-        lib.tsc_gather_tiled_blocks_per_sm.restype = ctypes.c_int
         lib.tsc_cuda_error_string.argtypes = [ctypes.c_int]
         lib.tsc_cuda_error_string.restype = ctypes.c_char_p
         _loaded = (lib, info)

@@ -471,18 +471,23 @@ class _WindowedDeposit(torch.autograd.Function):
     With tail_k > 0 the particles that break the (small, quantile) halo
     contract get weight 0 in K1 and a masked gradient from K2; up to tail_k
     of them per chain are compacted and deposited / differentiated exactly
-    through the 27-point tail path (assign.py:482-516)."""
+    through the 27-point tail path (assign.py:482-516), in float32 whatever
+    `bf16_fwd` and `bf16_bwd` select for K1 and K2."""
 
     @staticmethod
-    def forward(ctx, pos, g, halo, block, block_dep, tail_k):
+    def forward(ctx, pos, g, halo, block, block_dep, tail_k, bf16_fwd,
+                bf16_bwd):
         ctx.g, ctx.halo, ctx.block, ctx.tail_k = g, halo, block, tail_k
+        ctx.bf16_bwd = bf16_bwd
         if tail_k == 0:
             ctx.save_for_backward(pos)
-            return tk.tsc_deposit_window(pos, g, halo, block_dep)
+            return tk.tsc_deposit_window(pos, g, halo, block_dep,
+                                         bf16=bf16_fwd)
         hx, hy = tk._halo_pair(halo)
         excess = _halo_excess(pos, g, hx, hy)
         ok = (excess <= 0.0).to(pos.dtype)
-        rho = tk.tsc_deposit_window(pos, g, halo, block_dep, weights=ok)
+        rho = tk.tsc_deposit_window(pos, g, halo, block_dep, weights=ok,
+                                    bf16=bf16_fwd)
         vals, idx = _compact_topk(excess.flatten(-3), tail_k)
         pos_k = torch.gather(pos.flatten(-3), -1,
                              idx.unsqueeze(-2).expand(idx.shape[:-1] + (3, -1)))
@@ -494,32 +499,38 @@ class _WindowedDeposit(torch.autograd.Function):
     def backward(ctx, cot):
         g = ctx.g
         cot = cot.contiguous()
+        nones = (None,) * 7
         if ctx.tail_k == 0:
             (pos,) = ctx.saved_tensors
             out = tk.tsc_gather_grads_window(cot, pos, g, ctx.halo, ctx.block,
-                                             want_value=False)
-            return out, None, None, None, None, None
+                                             want_value=False,
+                                             bf16=ctx.bf16_bwd)
+            return (out,) + nones
         pos, ok, idx, pos_k, valid = ctx.saved_tensors
         out = tk.tsc_gather_grads_window(cot, pos, g, ctx.halo, ctx.block,
-                                         want_value=False)
+                                         want_value=False, bf16=ctx.bf16_bwd)
         vk = _tail_weight_grad(cot, pos_k, valid, g)
         outf = (out * ok.unsqueeze(-4)).flatten(-3)
         outf = outf.scatter_add(-1, idx.unsqueeze(-2).expand_as(vk), vk)
-        return outf.reshape(out.shape), None, None, None, None, None
+        return (outf.reshape(out.shape),) + nones
 
 
 def make_tsc_deposit_fast(g: GridSpec, halo: int = 8, block: tuple = (8, 8),
-                          block_dep: tuple | None = None, tail_k: int = 0):
+                          block_dep: tuple | None = None, tail_k: int = 0,
+                          bf16_fwd: bool = False, bf16_bwd: bool = False):
     """pos -> rho through the kernel deposit (assign.py:441-516).  `block`
     feeds the gather (K2), `block_dep` the deposit (K1; default from
     `auto_block_dep`).  Requires the halo contract |base - q| <= halo - 1
-    in x/y, or tail_k > 0 for the exact tail split."""
+    in x/y, or tail_k > 0 for the exact tail split.  `bf16_fwd` and
+    `bf16_bwd` select the TPU kernels' bf16 option for K1 and K2 (input.par's
+    `pallas_bf16_dep` and `pallas_bf16_grad`)."""
     if block_dep is None:
         block_dep = auto_block_dep(g, halo, block)
     block, block_dep = tuple(block), tuple(block_dep)
 
     def dep(pos):
-        return _WindowedDeposit.apply(pos, g, halo, block, block_dep, tail_k)
+        return _WindowedDeposit.apply(pos, g, halo, block, block_dep, tail_k,
+                                      bool(bf16_fwd), bool(bf16_bwd))
 
     return dep
 

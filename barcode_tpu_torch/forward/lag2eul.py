@@ -7,8 +7,7 @@ velocities] -> mass-assignment deposit (NGP, CIC, TSC, SPH, sph_ft, or the
 kernel TSC deposit) -> overdensity.  Differentiable end to end with torch
 autograd; the kernel deposit carries its own backward (kernel K2).
 
-Inputs may carry a leading chain dimension.  The JAX package's bf16 kernel
-options are refused by the configuration (config.py).
+Inputs may carry a leading chain dimension.
 """
 from __future__ import annotations
 
@@ -23,7 +22,8 @@ from barcode_tpu_torch.forward import lpt, particles, assign
 class ForwardConfig:
     """Static configuration of the forward model.  The `pallas_*` names are
     those of the JAX package and of input.par; here they select the CUDA
-    kernel deposit (K1 forward, K2 backward) and its windows."""
+    kernel deposit (K1 forward, K2 backward), its windows and its bf16
+    options."""
 
     sfmodel: int = 1          # 1 Zel'dovich, 2 2LPT, 3 ALPT
     masskernel: object = 3    # 0 ngp / 1 cic / 2 tsc / 3 sph / 'sph_ft'
@@ -45,6 +45,10 @@ class ForwardConfig:
     pallas_block: tuple = (8, 8)   # gather-kernel (K2) block (BX, BY)
     pallas_block_dep: tuple | None = None  # deposit-kernel (K1) block;
                                # None -> assign.auto_block_dep
+    pallas_bf16_grad: bool = False  # the gathers (K2, K4) with the TPU's
+                               # bf16 z contraction: gradient ~2^-9 relative
+    pallas_bf16_dep: bool = False  # the deposits (K1, K3) with bf16 tap
+                               # weights: rho ~2^-9 relative
     pallas_tail_k: int = 0     # halo-tail split capacity per chain (0 = off)
 
 
@@ -100,7 +104,8 @@ def lag2eul(delta_lag, g: GridSpec, fc: ForwardConfig, gp: GrowthParams,
             g, halo=fc.pallas_halo, block=tuple(fc.pallas_block),
             block_dep=(tuple(fc.pallas_block_dep)
                        if fc.pallas_block_dep else None),
-            tail_k=fc.pallas_tail_k)
+            tail_k=fc.pallas_tail_k, bf16_fwd=fc.pallas_bf16_dep,
+            bf16_bwd=fc.pallas_bf16_grad)
         rho = dep(pos)
         if mk == "sph_ft":
             w4 = assign.w4_fourier(g, kernel_h(fc, g), rho.device)

@@ -31,20 +31,19 @@ in interpret mode), and a CUDA tensor to its hand-written CUDA kernel.
 Both deposits launch one shared-memory kernel, `csrc/tsc_deposit_tiled.cu`,
 and both gathers another, `csrc/tsc_gather_tiled.cu`, each in its dense or
 its slab geometry.  There is no fallback: a CUDA tensor launches the kernel
-or raises.  Each kernel's launches are counted in the `launches` attribute
-of its launcher: `tsc_deposit_window` (K1), `tsc_gather_grads_window` (K2),
-`tsc_deposit_slab` (K3) and `tsc_gather_grads_slab` (K4).
+or raises.  Each kernel's launches are counted on its launcher:
+`tsc_deposit_window` (K1), `tsc_gather_grads_window` (K2),
+`tsc_deposit_slab` (K3) and `tsc_gather_grads_slab` (K4) count their
+float32 launches in `launches` and their bf16 ones in `launches_bf16`.
 
-The earlier kernels stay built as witnesses: the bit-for-bit yardstick of
-the tiled kernels on the card, timed beside them.  Only an explicit `impl=`
-reaches them (`"push"`: csrc/tsc_deposit.cu and csrc/tsc_deposit_slab.cu,
-one thread per particle with global atomics; `"pull"`:
-csrc/tsc_deposit_stream.cu, the streamed-window K1s; `"thread"`:
-csrc/tsc_gather.cu and csrc/tsc_gather_slab.cu, one thread per particle),
-and they count their launches apart: `tsc_deposit_window_push`,
-`tsc_deposit_window_stream`, `tsc_deposit_slab_push`,
-`tsc_gather_grads_window_thread`, `tsc_gather_grads_slab_thread`.  No path
-of the program passes `impl`.
+`bf16=True` is the TPU kernels' `bf16` option (input.par's
+`pallas_bf16_dep` for the deposits, `pallas_bf16_grad` for the gathers):
+the deposit rounds each tap's x-y weight and its z weight times the mass to
+bfloat16 and multiplies them in float32 (pallas_deposit.py:230-233); the
+gather rounds the field's taps, the z weights and their derivatives to
+bfloat16 before the z contraction, and keeps float32 after it (the z-first
+body, pallas_deposit.py:349, :398-401).  Every such product is exact in
+float32, so only the float32 sums differ from the TPU's.
 
 Positions are (3,) + grid or (C, 3) + grid for C chains (one launch covers
 all chains); weights and fields are grid or (C,) + grid.
@@ -280,10 +279,29 @@ def _chain_offsets(pos, g: GridSpec):
     return (torch.arange(C, device=pos.device) * g.N).reshape(C, 1, 1, 1)
 
 
+def _bf16(x):
+    """x rounded to bfloat16 (round to nearest even), back in float32."""
+    return x.to(torch.bfloat16).to(x.dtype)
+
+
+def _tap_weights(wx, fy, my, fz, oy, weights, bf16: bool):
+    """The three z taps' weights of one (x, y) offset pair of a deposit:
+    wx * wy * wz [* weight] in float32, or with `bf16` bf16(wx * wy) *
+    bf16(wz * weight) (pallas_deposit.py:230-233)."""
+    wxy = wx * (_tsc_w(fy, oy) * my)
+    if not bf16:
+        return [wxy * _tsc_w(fz, oz) if weights is None
+                else wxy * _tsc_w(fz, oz) * weights for oz in _OFFSETS]
+    wxy = _bf16(wxy)
+    return [wxy * _bf16(_tsc_w(fz, oz) if weights is None
+                        else _tsc_w(fz, oz) * weights) for oz in _OFFSETS]
+
+
 def tsc_deposit_window_plain(pos, g: GridSpec, halo=4, block=(8, 8),
-                             weights=None):
+                             weights=None, bf16: bool = False):
     """Plain PyTorch version of K1: 27 `index_add_` passes with the deposit
-    window masks (effective halos as the TPU kernel's)."""
+    window masks (effective halos as the TPU kernel's); `bf16` rounds the
+    tap weights as the TPU's bf16 option."""
     hx, hy = _halo_pair(halo)
     hx = _round_halo(hx, block[0])
     X, Y, Z, (fx, fy, fz) = _taps(pos, g, _deposit_axis, block, hx, hy)
@@ -296,37 +314,38 @@ def tsc_deposit_window_plain(pos, g: GridSpec, halo=4, block=(8, 8),
         wx = _tsc_w(fx, ox) * mx
         for b, oy in enumerate(_OFFSETS):
             ty, my = Y[b]
-            wxy = wx * (_tsc_w(fy, oy) * my)
-            for k, oz in enumerate(_OFFSETS):
-                w = wxy * _tsc_w(fz, oz)
-                if weights is not None:
-                    w = w * weights
+            ws = _tap_weights(wx, fy, my, fz, oy, weights, bf16)
+            for k, w in enumerate(ws):
                 idx = c0 + (tx * g.N2 + ty) * g.N3 + Z[k]
                 flat.index_add_(0, idx.reshape(-1), w.reshape(-1))
     return out
 
 
-def tsc_gather_grads_window_plain(field, pos, g: GridSpec, halo=4,
-                                  block=(8, 8), want_value=True):
-    """Plain PyTorch version of K2: value (optional) and the three position
-    derivatives, divided by the cell size, over the gather window taps."""
-    hx, hy = _halo_pair(halo)
-    hy = _round_halo(hy, block[1])
-    X, Y, Z, (fx, fy, fz) = _taps(pos, g, _gather_axis, block, hx, hy)
-    flat = field.reshape(-1)
-    c0 = _chain_offsets(pos, g)
+def _gather_sums(flat, X, Y, Z, fracs, c0, g: GridSpec, want_value: bool,
+                 bf16: bool):
+    """The gathers' arithmetic over their masked taps: per (x, y) offset
+    the z sums of the value and the z derivative, then the x-y weights, the
+    derivatives divided by the cell size.  `X` holds (row target, mask)
+    pairs.  With `bf16` the
+    taps and the z weights and derivatives are rounded to bfloat16 first
+    (pallas_deposit.py:349, :398-401)."""
+    fx, fy, fz = fracs
     w = [{s: _tsc_w(f, s) for s in _OFFSETS} for f in (fx, fy, fz)]
     dw = [{s: _tsc_dw(f, s) for s in _OFFSETS} for f in (fx, fy, fz)]
+    if bf16:
+        w[2] = {s: _bf16(v) for s, v in w[2].items()}
+        dw[2] = {s: _bf16(v) for s, v in dw[2].items()}
     val = gx = gy = gz = 0.0
     for a, ox in enumerate(_OFFSETS):
         tx, mx = X[a]
         for b, oy in enumerate(_OFFSETS):
             ty, my = Y[b]
             row = c0 + (tx * g.N2 + ty) * g.N3
-            m = (mx & my).to(field.dtype)
+            m = (mx & my).to(flat.dtype)
             s = sd = 0.0
             for k, oz in enumerate(_OFFSETS):
-                v = flat[row + Z[k]] * m
+                v = flat[row + Z[k]]
+                v = (_bf16(v) if bf16 else v) * m
                 s = s + w[2][oz] * v
                 sd = sd + dw[2][oz] * v
             val = val + w[0][ox] * w[1][oy] * s
@@ -338,6 +357,19 @@ def tsc_gather_grads_window_plain(field, pos, g: GridSpec, halo=4,
     if want_value:
         chans.insert(0, val)
     return torch.stack(chans, dim=-4)
+
+
+def tsc_gather_grads_window_plain(field, pos, g: GridSpec, halo=4,
+                                  block=(8, 8), want_value=True,
+                                  bf16: bool = False):
+    """Plain PyTorch version of K2: value (optional) and the three position
+    derivatives, divided by the cell size, over the gather window taps;
+    `bf16` rounds as the TPU's bf16 option."""
+    hx, hy = _halo_pair(halo)
+    hy = _round_halo(hy, block[1])
+    X, Y, Z, fracs = _taps(pos, g, _gather_axis, block, hx, hy)
+    return _gather_sums(field.reshape(-1), X, Y, Z, fracs,
+                        _chain_offsets(pos, g), g, want_value, bf16)
 
 
 # ---------------------------------------------------------------------------
@@ -365,11 +397,6 @@ def _check_positions(pos, g: GridSpec, hx: int, hy: int, block):
         raise ValueError(f"block {block} does not divide grid {g.shape}")
     if not (0 < hx <= g.N1 and 0 < hy <= g.N2):
         raise ValueError(f"halo ({hx}, {hy}) must be in (0, N] per axis")
-
-
-def _launch_args(g: GridSpec, C: int):
-    d1, d2, d3 = g.cell
-    return (C, g.N1, g.N2, g.N3, d1, d2, d3)
 
 
 def _fixed_point_scale(weights, max_sum_per_weight: float, device):
@@ -478,12 +505,17 @@ def gather_plan(rows: int, n2: int, n3: int, chains: int) -> GatherPlan:
                       (tiles, chains))
 
 
-_DEPOSIT_IMPLS = ("tiled", "push", "pull")
-_GATHER_IMPLS = ("tiled", "thread")
+def _count(wrapper, bf16: bool):
+    """One launch on `wrapper`'s float32 or bf16 counter."""
+    if bf16:
+        wrapper.launches_bf16 += 1
+    else:
+        wrapper.launches += 1
 
 
 def _deposit_tiled(pos, weights, g: GridSpec, rows: int, out_rows: int,
-                   start: int, block: tuple, hx: int, hy: int, slab: bool):
+                   start: int, block: tuple, hx: int, hy: int, slab: bool,
+                   bf16: bool):
     """Launches csrc/tsc_deposit_tiled.cu; returns (library, status,
     output) for the caller to check and count."""
     from barcode_tpu_torch import cuda_build
@@ -504,142 +536,52 @@ def _deposit_tiled(pos, weights, g: GridSpec, rows: int, out_rows: int,
             pos.data_ptr(), weights.data_ptr() if weights is not None else None,
             scale.data_ptr(), acc.data_ptr(), bad.data_ptr(), out.data_ptr(),
             C, rows, g.N1, g.N2, g.N3, d1, d2, d3, start, block[0], block[1],
-            hx, hy, int(slab), plan.box_cells, stream)
+            hx, hy, int(slab), int(bf16), plan.box_cells, stream)
     return lib, status, out
 
 
 def tsc_deposit_window(pos, g: GridSpec, halo=4, block=(8, 8), weights=None,
-                       stream=None, impl="tiled"):
+                       stream=None, bf16: bool = False):
     """K1: windowed TSC deposit (TPU: pallas_deposit.tsc_deposit_pallas).
 
     `halo` is the requested contract (int or (hx, hy)); hx is rounded as
     on the TPU.  `stream` is the JAX argument that picks the TPU's streamed
     body (K1s); the two bodies compute one function, so it selects nothing
-    here.  Returns grid or (C,) + grid float32.
+    here.  `bf16`: the TPU's bf16 tap weights.  Returns grid or (C,) + grid
+    float32.
 
     CPU tensors take the plain version, `tsc_deposit_window_plain`, for
-    every `stream` and `impl`: the JAX package's tests hold both TPU bodies
-    against one reference (tests/test_pallas_deposit.py:173-195).  CUDA
-    tensors launch csrc/tsc_deposit_tiled.cu; `impl="push"` and
-    `impl="pull"` launch the witnesses csrc/tsc_deposit.cu and
-    csrc/tsc_deposit_stream.cu instead (the same bits, for checks and
-    timings only)."""
-    if impl not in _DEPOSIT_IMPLS:
-        raise ValueError(f"impl must be one of {_DEPOSIT_IMPLS}, got {impl!r}")
+    every `stream`: the JAX package's tests hold both TPU bodies against
+    one reference (tests/test_pallas_deposit.py:173-195).  CUDA tensors
+    launch csrc/tsc_deposit_tiled.cu."""
     hx, hy = _halo_pair(halo)
     hx = _round_halo(hx, block[0])
     _check_positions(pos, g, hx, hy, block)
     if pos.device.type == "cpu":
-        return tsc_deposit_window_plain(pos, g, (hx, hy), block, weights)
+        return tsc_deposit_window_plain(pos, g, (hx, hy), block, weights,
+                                        bf16)
     if pos.device.type != "cuda":
         raise ValueError(f"unsupported device {pos.device}")
     batch = tuple(pos.shape[:-4])
     _check_tensor("pos", pos, pos.shape, pos.device)
     if weights is not None:
         _check_tensor("weights", weights, batch + g.shape, pos.device)
-    if impl == "push":
-        return tsc_deposit_window_push(pos, g, (hx, hy), block, weights)
-    if impl == "pull":
-        return tsc_deposit_window_stream(pos, g, (hx, hy), block, weights)
     from barcode_tpu_torch import cuda_build
 
     lib, status, rho = _deposit_tiled(pos, weights, g, g.N1, g.N1, 0, block,
-                                      hx, hy, slab=False)
+                                      hx, hy, slab=False, bf16=bf16)
     cuda_build.check(lib, status, "tsc_deposit_window")
-    tsc_deposit_window.launches += 1
+    _count(tsc_deposit_window, bf16)
     return rho
 
 
 tsc_deposit_window.launches = 0
-
-
-def tsc_deposit_window_push(pos, g: GridSpec, halo, block: tuple,
-                            weights=None):
-    """Witness launcher: `tsc_deposit_window(..., impl="push")` on CUDA
-    tensors (csrc/tsc_deposit.cu, one thread per particle, 27 global
-    atomics each).  `halo` is the (hx, hy) pair with hx already rounded;
-    inputs are checked by the caller."""
-    from barcode_tpu_torch import cuda_build
-
-    hx, hy = halo
-    batch = tuple(pos.shape[:-4])
-    C = batch[0] if batch else 1
-    lib, _ = cuda_build.load()
-    scale = _fixed_point_scale(weights, g.N, pos.device)
-    acc = torch.zeros(batch + g.shape, dtype=torch.int64, device=pos.device)
-    bad = torch.zeros(C, dtype=torch.int32, device=pos.device)
-    rho = torch.empty(batch + g.shape, dtype=torch.float32, device=pos.device)
-    with torch.cuda.device(pos.device):
-        stream_ptr = torch.cuda.current_stream().cuda_stream
-        status = lib.tsc_deposit_window_launch(
-            pos.data_ptr(), weights.data_ptr() if weights is not None else None,
-            scale.data_ptr(), acc.data_ptr(), bad.data_ptr(), rho.data_ptr(),
-            *_launch_args(g, C), block[0], block[1], hx, hy, stream_ptr)
-    cuda_build.check(lib, status, "tsc_deposit_window_push")
-    tsc_deposit_window_push.launches += 1
-    return rho
-
-
-tsc_deposit_window_push.launches = 0
-
-# The pull witness's accumulator tile: BX*BY*TZ int64 cells, 64 KB of shared
-# memory where a cluster of at most STREAM_CLUSTER_MAX tiles covers the z
-# column (TZ = 32 z cells for the (16, 16) block at N3 = 256), at most 128
-# KB otherwise
-STREAM_TILE_CELLS = 8192
-STREAM_TILE_CELLS_MAX = 16384
-STREAM_CLUSTER_MAX = 8
-
-
-def stream_tile_z(g: GridSpec, block: tuple) -> int:
-    """The pull witness's z extent per output tile: the z tiles of one
-    (BX, BY) column form one thread-block cluster of at most
-    STREAM_CLUSTER_MAX blocks."""
-    nxy = block[0] * block[1]
-    tz = max(-(-g.N3 // STREAM_CLUSTER_MAX),
-             min(g.N3, max(1, STREAM_TILE_CELLS // nxy)))
-    if nxy * tz > STREAM_TILE_CELLS_MAX:
-        raise ValueError(f"block {block} at N3={g.N3} is too large for K1s's "
-                         "shared-memory tiles")
-    return tz
-
-
-def tsc_deposit_window_stream(pos, g: GridSpec, halo, block: tuple,
-                              weights=None):
-    """Witness launcher: `tsc_deposit_window(..., impl="pull")` on CUDA
-    tensors (csrc/tsc_deposit_stream.cu, the streamed-window K1s).  `halo`
-    is the (hx, hy) pair with hx already rounded; inputs are checked by the
-    caller."""
-    from barcode_tpu_torch import cuda_build
-
-    hx, hy = halo
-    batch = tuple(pos.shape[:-4])
-    C = batch[0] if batch else 1
-    tz = stream_tile_z(g, block)
-    lib, _ = cuda_build.load()
-    aligned = all(t is None or t.data_ptr() % 16 == 0 for t in (pos, weights))
-    vec = 4 if g.N3 % 4 == 0 and aligned else 1
-    scale = _fixed_point_scale(weights, g.N, pos.device)
-    bad = torch.zeros(C, dtype=torch.int32, device=pos.device)
-    rho = torch.empty(batch + g.shape, dtype=torch.float32, device=pos.device)
-    with torch.cuda.device(pos.device):
-        stream_ptr = torch.cuda.current_stream().cuda_stream
-        status = lib.tsc_deposit_stream_launch(
-            pos.data_ptr(), weights.data_ptr() if weights is not None else None,
-            scale.data_ptr(), bad.data_ptr(), rho.data_ptr(),
-            *_launch_args(g, C), block[0], block[1], hx, hy, tz, vec,
-            stream_ptr)
-    cuda_build.check(lib, status, "tsc_deposit_window_stream")
-    tsc_deposit_window_stream.launches += 1
-    return rho
-
-
-tsc_deposit_window_stream.launches = 0
+tsc_deposit_window.launches_bf16 = 0
 
 
 def _gather_tiled(field, pos, g: GridSpec, rows: int, start: int,
                   block: tuple, hx: int, hy: int, slab: bool,
-                  want_value: bool, taps=None):
+                  want_value: bool, bf16: bool = False, taps=None):
     """Launches csrc/tsc_gather_tiled.cu on checked inputs (`taps`: None or
     two zeroed int64 counters on the device); returns (library, status,
     output) for the caller to check and count."""
@@ -659,28 +601,25 @@ def _gather_tiled(field, pos, g: GridSpec, rows: int, start: int,
             field.data_ptr(), pos.data_ptr(), out.data_ptr(),
             taps.data_ptr() if taps is not None else None, C, rows, g.N1,
             g.N2, g.N3, d1, d2, d3, start, block[0], block[1], hx, hy,
-            int(slab), int(want_value), plan.box_cells, stream)
+            int(slab), int(bf16), int(want_value), plan.box_cells, stream)
     return lib, status, out
 
 
 def tsc_gather_grads_window(field, pos, g: GridSpec, halo=4, block=(8, 8),
-                            want_value=True, impl="tiled"):
+                            want_value=True, bf16: bool = False):
     """K2: windowed TSC value + position-gradient gather (TPU:
     pallas_deposit.tsc_gather_grads_pallas).
 
     Returns batch + (4|3,) + grid float32: [value,] d/dx, d/dy, d/dz per
-    physical position.  hy is rounded as on the TPU.  CPU tensors take the
-    plain version for every `impl`; CUDA tensors launch
-    csrc/tsc_gather_tiled.cu, or with `impl="thread"` the witness
-    csrc/tsc_gather.cu (the same bits, for checks and timings only)."""
-    if impl not in _GATHER_IMPLS:
-        raise ValueError(f"impl must be one of {_GATHER_IMPLS}, got {impl!r}")
+    physical position.  hy is rounded as on the TPU.  `bf16`: the TPU's
+    bf16 z contraction.  CPU tensors take the plain version; CUDA tensors
+    launch csrc/tsc_gather_tiled.cu."""
     hx, hy = _halo_pair(halo)
     hy = _round_halo(hy, block[1])
     _check_positions(pos, g, hx, hy, block)
     if pos.device.type == "cpu":
         return tsc_gather_grads_window_plain(field, pos, g, (hx, hy), block,
-                                             want_value)
+                                             want_value, bf16)
     if pos.device.type != "cuda":
         raise ValueError(f"unsupported device {pos.device}")
     from barcode_tpu_torch import cuda_build
@@ -688,46 +627,15 @@ def tsc_gather_grads_window(field, pos, g: GridSpec, halo=4, block=(8, 8),
     batch = tuple(pos.shape[:-4])
     _check_tensor("pos", pos, pos.shape, pos.device)
     _check_tensor("field", field, batch + g.shape, pos.device)
-    if impl == "thread":
-        return tsc_gather_grads_window_thread(field, pos, g, (hx, hy), block,
-                                              want_value)
     lib, status, out = _gather_tiled(field, pos, g, g.N1, 0, block, hx, hy,
-                                     False, want_value)
+                                     False, want_value, bf16)
     cuda_build.check(lib, status, "tsc_gather_grads_window")
-    tsc_gather_grads_window.launches += 1
+    _count(tsc_gather_grads_window, bf16)
     return out
 
 
 tsc_gather_grads_window.launches = 0
-
-
-def tsc_gather_grads_window_thread(field, pos, g: GridSpec, halo, block: tuple,
-                                   want_value: bool):
-    """Witness launcher: `tsc_gather_grads_window(..., impl="thread")` on
-    CUDA tensors (csrc/tsc_gather.cu, one thread per particle).  `halo` is
-    the (hx, hy) pair with hy already rounded; inputs are checked by the
-    caller."""
-    from barcode_tpu_torch import cuda_build
-
-    hx, hy = halo
-    batch = tuple(pos.shape[:-4])
-    C = batch[0] if batch else 1
-    lib, _ = cuda_build.load()
-    nch = 4 if want_value else 3
-    out = torch.empty(batch + (nch,) + g.shape, dtype=torch.float32,
-                      device=pos.device)
-    with torch.cuda.device(pos.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        status = lib.tsc_gather_grads_window_launch(
-            field.data_ptr(), pos.data_ptr(), out.data_ptr(),
-            *_launch_args(g, C), block[0], block[1], hx, hy, int(want_value),
-            stream)
-    cuda_build.check(lib, status, "tsc_gather_grads_window_thread")
-    tsc_gather_grads_window_thread.launches += 1
-    return out
-
-
-tsc_gather_grads_window_thread.launches = 0
+tsc_gather_grads_window.launches_bf16 = 0
 
 
 # ---------------------------------------------------------------------------
@@ -769,10 +677,13 @@ def _slab_taps(pos, g: GridSpec, n1_loc: int, dev: int):
 
 
 def tsc_deposit_slab_plain(pos, g: GridSpec, n1_loc: int, dev: int, halo: int,
-                           block=(8, 8), weights=None):
+                           block=(8, 8), weights=None, bf16: bool = False):
     """Plain PyTorch version of K3: the slab's TSC deposit into its extended
     buffer (batch + (n1_loc + 2*halo, N2, N3)) under the slab deposit window
-    rules (see csrc/tsc_deposit_slab.cu), 27 `index_add_` passes."""
+    rules, 27 `index_add_` passes: extended rows [0, n1_loc + 2h), the
+    particle's row unwrapped to the slab and shifted by +h, the block window
+    in extended rows, taps outside the buffer dropped; y as K1, z wrapped.
+    `bf16` rounds the tap weights as the TPU's bf16 option."""
     h = int(halo)
     BX, BY = block
     n1_ext = n1_loc + 2 * h
@@ -799,11 +710,8 @@ def tsc_deposit_slab_plain(pos, g: GridSpec, n1_loc: int, dev: int, halo: int,
         wx = _tsc_w(fx, ox) * mx
         for b, oy in enumerate(_OFFSETS):
             ty, my = Y[b]
-            wxy = wx * (_tsc_w(fy, oy) * my)
-            for k, oz in enumerate(_OFFSETS):
-                w = wxy * _tsc_w(fz, oz)
-                if weights is not None:
-                    w = w * weights
+            ws = _tap_weights(wx, fy, my, fz, oy, weights, bf16)
+            for k, w in enumerate(ws):
                 idx = c0 + (tx * g.N2 + ty) * g.N3 + Z[k]
                 flat.index_add_(0, idx.reshape(-1), w.reshape(-1))
     return out
@@ -811,47 +719,27 @@ def tsc_deposit_slab_plain(pos, g: GridSpec, n1_loc: int, dev: int, halo: int,
 
 def tsc_gather_grads_slab_plain(ext_field, pos, g: GridSpec, n1_loc: int,
                                 dev: int, halo: int, block=(8, 8),
-                                want_value=True):
+                                want_value=True, bf16: bool = False):
     """Plain PyTorch version of K4: value (optional) and the three position
     derivatives, divided by the cell size, of the extended-slab field under
-    the slab gather window rules (see csrc/tsc_gather_slab.cu)."""
+    the slab gather window rules (the window around the particle's block
+    in slab rows, the tap reading extended row X + h; nothing wraps in x);
+    `bf16` rounds as the TPU's bf16 option."""
     h = int(halo)
     BX, BY = block
     n1_ext = n1_loc + 2 * h
-    bx, by, bz, (fx, fy, fz), r, iy = _slab_taps(pos, g, n1_loc, dev)
+    bx, by, bz, fracs, r, iy = _slab_taps(pos, g, n1_loc, dev)
     lo = torch.div(r, BX, rounding_mode="floor") * BX - h
     X = [((bx + o + h).clamp(0, n1_ext - 1),
           (bx + o >= lo) & (bx + o < lo + BX + 2 * h)) for o in _OFFSETS]
     Y = [_gather_axis(by, iy, g.N2, BY, h, o) for o in _OFFSETS]
     Z = [torch.remainder(bz + o, g.N3) for o in _OFFSETS]
-    flat = ext_field.reshape(-1)
     c0 = 0
     if pos.dim() == 5:
         c0 = (torch.arange(pos.shape[0], device=pos.device)
               * (n1_ext * g.N2 * g.N3)).reshape(-1, 1, 1, 1)
-    w = [{s: _tsc_w(f, s) for s in _OFFSETS} for f in (fx, fy, fz)]
-    dw = [{s: _tsc_dw(f, s) for s in _OFFSETS} for f in (fx, fy, fz)]
-    val = gx = gy = gz = 0.0
-    for a, ox in enumerate(_OFFSETS):
-        tx, mx = X[a]
-        for b, oy in enumerate(_OFFSETS):
-            ty, my = Y[b]
-            row = c0 + (tx * g.N2 + ty) * g.N3
-            m = (mx & my).to(ext_field.dtype)
-            s = sd = 0.0
-            for k, oz in enumerate(_OFFSETS):
-                v = flat[row + Z[k]] * m
-                s = s + w[2][oz] * v
-                sd = sd + dw[2][oz] * v
-            val = val + w[0][ox] * w[1][oy] * s
-            gx = gx + dw[0][ox] * w[1][oy] * s
-            gy = gy + w[0][ox] * dw[1][oy] * s
-            gz = gz + w[0][ox] * w[1][oy] * sd
-    d1, d2, d3 = g.cell
-    chans = [gx / d1, gy / d2, gz / d3]
-    if want_value:
-        chans.insert(0, val)
-    return torch.stack(chans, dim=-4)
+    return _gather_sums(ext_field.reshape(-1), X, Y, Z, fracs, c0, g,
+                        want_value, bf16)
 
 
 def _check_slab(pos, g: GridSpec, n1_loc: int, dev: int, halo: int, block,
@@ -875,33 +763,21 @@ def _check_slab(pos, g: GridSpec, n1_loc: int, dev: int, halo: int, block,
         raise ValueError(f"block {block} does not tile ({rows}, {g.N2})")
 
 
-def _slab_launch_args(g: GridSpec, C: int, n1_loc: int, dev: int):
-    d1, d2, d3 = g.cell
-    return (C, n1_loc, g.N1, g.N2, g.N3, d1, d2, d3, dev * n1_loc)
-
-
-_SLAB_IMPLS = ("tiled", "push")
-
-
 def tsc_deposit_slab(pos, g: GridSpec, n1_loc: int, dev: int, halo: int,
-                     block=(8, 8), weights=None, impl="tiled"):
+                     block=(8, 8), weights=None, bf16: bool = False):
     """K3: TSC deposit of slab `dev`'s particles into its extended buffer
     (TPU: pallas_deposit.tsc_deposit_pallas_slab, both of its bodies).
 
     pos is (3, n1_loc, N2, N3) or (C, 3, n1_loc, N2, N3) for C chains (one
-    launch covers all); weights batch + (n1_loc, N2, N3).  Returns batch +
-    (n1_loc + 2*halo, N2, N3) float32.  CPU tensors take the plain version
-    for every `impl`; CUDA tensors launch csrc/tsc_deposit_tiled.cu in its
-    slab geometry, or with `impl="push"` the witness
-    csrc/tsc_deposit_slab.cu (the same bits, for checks and timings
-    only)."""
-    if impl not in _SLAB_IMPLS:
-        raise ValueError(f"impl must be one of {_SLAB_IMPLS}, got {impl!r}")
+    launch covers all); weights batch + (n1_loc, N2, N3).  `bf16`: the
+    TPU's bf16 tap weights.  Returns batch + (n1_loc + 2*halo, N2, N3)
+    float32.  CPU tensors take the plain version; CUDA tensors launch
+    csrc/tsc_deposit_tiled.cu in its slab geometry."""
     block = tuple(block)
     _check_slab(pos, g, n1_loc, dev, halo, block, n1_loc + 2 * halo)
     if pos.device.type == "cpu":
         return tsc_deposit_slab_plain(pos, g, n1_loc, dev, halo, block,
-                                      weights)
+                                      weights, bf16)
     if pos.device.type != "cuda":
         raise ValueError(f"unsupported device {pos.device}")
     batch = tuple(pos.shape[:-4])
@@ -909,71 +785,36 @@ def tsc_deposit_slab(pos, g: GridSpec, n1_loc: int, dev: int, halo: int,
     if weights is not None:
         _check_tensor("weights", weights, batch + (n1_loc, g.N2, g.N3),
                       pos.device)
-    if impl == "push":
-        return tsc_deposit_slab_push(pos, g, n1_loc, dev, halo, block,
-                                     weights)
     from barcode_tpu_torch import cuda_build
 
     lib, status, out = _deposit_tiled(pos, weights, g, n1_loc,
                                       n1_loc + 2 * halo, dev * n1_loc, block,
-                                      halo, halo, slab=True)
+                                      halo, halo, slab=True, bf16=bf16)
     cuda_build.check(lib, status, "tsc_deposit_slab")
-    tsc_deposit_slab.launches += 1
+    _count(tsc_deposit_slab, bf16)
     return out
 
 
 tsc_deposit_slab.launches = 0
-
-
-def tsc_deposit_slab_push(pos, g: GridSpec, n1_loc: int, dev: int,
-                          halo: int, block: tuple, weights=None):
-    """Witness launcher: `tsc_deposit_slab(..., impl="push")` on CUDA
-    tensors (csrc/tsc_deposit_slab.cu, one thread per particle, 27 global
-    atomics each); inputs are checked by the caller."""
-    from barcode_tpu_torch import cuda_build
-
-    batch = tuple(pos.shape[:-4])
-    lib, _ = cuda_build.load()
-    C = batch[0] if batch else 1
-    ext = batch + (n1_loc + 2 * halo, g.N2, g.N3)
-    scale = _fixed_point_scale(weights, n1_loc * g.N2 * g.N3, pos.device)
-    acc = torch.zeros(ext, dtype=torch.int64, device=pos.device)
-    bad = torch.zeros(C, dtype=torch.int32, device=pos.device)
-    out = torch.empty(ext, dtype=torch.float32, device=pos.device)
-    with torch.cuda.device(pos.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        status = lib.tsc_deposit_slab_launch(
-            pos.data_ptr(), weights.data_ptr() if weights is not None else None,
-            scale.data_ptr(), acc.data_ptr(), bad.data_ptr(), out.data_ptr(),
-            *_slab_launch_args(g, C, n1_loc, dev), block[0], block[1], halo,
-            stream)
-    cuda_build.check(lib, status, "tsc_deposit_slab_push")
-    tsc_deposit_slab_push.launches += 1
-    return out
-
-
-tsc_deposit_slab_push.launches = 0
+tsc_deposit_slab.launches_bf16 = 0
 
 
 def tsc_gather_grads_slab(ext_field, pos, g: GridSpec, n1_loc: int, dev: int,
                           halo: int, block=(8, 8), want_value=True,
-                          impl="tiled"):
+                          bf16: bool = False):
     """K4: value + position-gradient gather of an extended-slab field at
     slab `dev`'s particles, the exact adjoint of K3 (TPU:
     pallas_deposit.tsc_gather_grads_pallas_slab).
 
     Returns batch + (4|3, n1_loc, N2, N3) float32: [value,] d/dx, d/dy,
-    d/dz per physical position.  CPU tensors take the plain version for
-    every `impl`; CUDA tensors launch csrc/tsc_gather_tiled.cu in its slab
-    geometry, or with `impl="thread"` the witness csrc/tsc_gather_slab.cu
-    (the same bits, for checks and timings only)."""
-    if impl not in _GATHER_IMPLS:
-        raise ValueError(f"impl must be one of {_GATHER_IMPLS}, got {impl!r}")
+    d/dz per physical position.  `bf16`: the TPU's bf16 z contraction.  CPU
+    tensors take the plain version; CUDA tensors launch
+    csrc/tsc_gather_tiled.cu in its slab geometry."""
     block = tuple(block)
     _check_slab(pos, g, n1_loc, dev, halo, block, n1_loc)
     if pos.device.type == "cpu":
         return tsc_gather_grads_slab_plain(ext_field, pos, g, n1_loc, dev,
-                                           halo, block, want_value)
+                                           halo, block, want_value, bf16)
     if pos.device.type != "cuda":
         raise ValueError(f"unsupported device {pos.device}")
     from barcode_tpu_torch import cuda_build
@@ -982,45 +823,16 @@ def tsc_gather_grads_slab(ext_field, pos, g: GridSpec, n1_loc: int, dev: int,
     _check_tensor("pos", pos, pos.shape, pos.device)
     _check_tensor("ext_field", ext_field,
                   batch + (n1_loc + 2 * halo, g.N2, g.N3), pos.device)
-    if impl == "thread":
-        return tsc_gather_grads_slab_thread(ext_field, pos, g, n1_loc, dev,
-                                            halo, block, want_value)
     lib, status, out = _gather_tiled(ext_field, pos, g, n1_loc, dev * n1_loc,
-                                     block, halo, halo, True, want_value)
+                                     block, halo, halo, True, want_value,
+                                     bf16)
     cuda_build.check(lib, status, "tsc_gather_grads_slab")
-    tsc_gather_grads_slab.launches += 1
+    _count(tsc_gather_grads_slab, bf16)
     return out
 
 
 tsc_gather_grads_slab.launches = 0
-
-
-def tsc_gather_grads_slab_thread(ext_field, pos, g: GridSpec, n1_loc: int,
-                                 dev: int, halo: int, block: tuple,
-                                 want_value: bool):
-    """Witness launcher: `tsc_gather_grads_slab(..., impl="thread")` on CUDA
-    tensors (csrc/tsc_gather_slab.cu, one thread per particle); inputs are
-    checked by the caller."""
-    from barcode_tpu_torch import cuda_build
-
-    batch = tuple(pos.shape[:-4])
-    lib, _ = cuda_build.load()
-    nch = 4 if want_value else 3
-    out = torch.empty(batch + (nch, n1_loc, g.N2, g.N3), dtype=torch.float32,
-                      device=pos.device)
-    C = batch[0] if batch else 1
-    with torch.cuda.device(pos.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        status = lib.tsc_gather_grads_slab_launch(
-            ext_field.data_ptr(), pos.data_ptr(), out.data_ptr(),
-            *_slab_launch_args(g, C, n1_loc, dev), block[0], block[1], halo,
-            int(want_value), stream)
-    cuda_build.check(lib, status, "tsc_gather_grads_slab_thread")
-    tsc_gather_grads_slab_thread.launches += 1
-    return out
-
-
-tsc_gather_grads_slab_thread.launches = 0
+tsc_gather_grads_slab.launches_bf16 = 0
 
 
 def gather_taps_outside_box(field, pos, g: GridSpec, halo, block,
@@ -1052,7 +864,7 @@ def gather_taps_outside_box(field, pos, g: GridSpec, halo, block,
     _check_tensor("field", field, tuple(pos.shape[:-4]) + shape, pos.device)
     taps = torch.zeros(2, dtype=torch.int64, device=pos.device)
     lib, status, _ = _gather_tiled(field, pos, g, rows, start, block, hx, hy,
-                                   slab is not None, False, taps)
+                                   slab is not None, False, taps=taps)
     cuda_build.check(lib, status, "gather_taps_outside_box")
     wrapper.launches += 1
     outside, total = taps.tolist()

@@ -189,15 +189,16 @@ class _SlabDeposit(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, pos, spec):
-        g, n1_loc, dev, h_k4, h_x, block, tail_k, split = spec
+        g, n1_loc, dev, h_k4, h_x, block, tail_k, split, bf16_fwd, _ = spec
         ctx.spec = spec
         if not split:
             ctx.save_for_backward(pos)
-            return tk.tsc_deposit_slab(pos, g, n1_loc, dev, h_k4, block)
+            return tk.tsc_deposit_slab(pos, g, n1_loc, dev, h_k4, block,
+                                       bf16=bf16_fwd)
         excess = assign._slab_halo_excess(pos, g, n1_loc, dev, h_k4)
         ok = (excess <= 0.0).to(pos.dtype)
         ext_k = tk.tsc_deposit_slab(pos, g, n1_loc, dev, h_k4, block,
-                                    weights=ok)
+                                    weights=ok, bf16=bf16_fwd)
         pad = h_x - h_k4
         ext = torch.nn.functional.pad(ext_k, (0, 0, 0, 0, pad, pad))
         vals, idx = assign._compact_topk(excess.flatten(-3), tail_k)
@@ -212,18 +213,20 @@ class _SlabDeposit(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, cot):
-        g, n1_loc, dev, h_k4, h_x, block, tail_k, split = ctx.spec
+        g, n1_loc, dev, h_k4, h_x, block, tail_k, split, _, bf16_bwd = \
+            ctx.spec
         cot = cot.contiguous()
         if not split:
             (pos,) = ctx.saved_tensors
             out = tk.tsc_gather_grads_slab(cot, pos, g, n1_loc, dev, h_k4,
-                                           block, want_value=False)
+                                           block, want_value=False,
+                                           bf16=bf16_bwd)
             return out, None
         pos, ok, idx, pos_k, row_k, valid = ctx.saved_tensors
         pad = h_x - h_k4
         cot_k = cot[..., pad:pad + n1_loc + 2 * h_k4, :, :].contiguous()
         out = tk.tsc_gather_grads_slab(cot_k, pos, g, n1_loc, dev, h_k4, block,
-                                       want_value=False)
+                                       want_value=False, bf16=bf16_bwd)
         vk = assign._tail_weight_grad_slab(cot, pos_k, row_k, valid, g,
                                            n1_loc, h_x, dev * n1_loc)
         outf = (out * ok.unsqueeze(-4)).flatten(-3)
@@ -234,7 +237,8 @@ class _SlabDeposit(torch.autograd.Function):
 def _make_pallas_slab_deposit(g: GridSpec, halo: int, n_dev: int,
                               block: tuple = (8, 8),
                               kernel_halo: int | None = None,
-                              tail_k: int = 0):
+                              tail_k: int = 0, bf16_fwd: bool = False,
+                              bf16_bwd: bool = False):
     """(dep, h_x): dep(pos, dev) deposits slab `dev`'s particles into the
     extended buffer (..., n1_loc + 2*h_x, N2, N3) through K3 (backward K4).
 
@@ -243,7 +247,9 @@ def _make_pallas_slab_deposit(g: GridSpec, halo: int, n_dev: int,
     margin h_x stays at the worst-case `halo`; contract violators of the
     kernel halo get weight 0 in K3 and a masked K4 gradient, and up to
     tail_k of them per chain go through the exact 27-point slab tail
-    (sharded_forward.py:118-202, its rounding kept exactly)."""
+    (sharded_forward.py:118-202, its rounding kept exactly).  `bf16_fwd`
+    and `bf16_bwd` select the TPU kernels' bf16 option for K3 and K4; the
+    tail stays float32."""
     n1_loc = g.N1 // n_dev
     h_k = halo if (tail_k <= 0 or kernel_halo is None) else min(kernel_halo,
                                                                 halo)
@@ -259,7 +265,8 @@ def _make_pallas_slab_deposit(g: GridSpec, halo: int, n_dev: int,
     block = tuple(block)
 
     def dep(pos, dev: int):
-        spec = (g, n1_loc, int(dev), h_k4, h_x, block, int(tail_k), split)
+        spec = (g, n1_loc, int(dev), h_k4, h_x, block, int(tail_k), split,
+                bool(bf16_fwd), bool(bf16_bwd))
         return _SlabDeposit.apply(pos, spec)
 
     dep.h_k4 = h_k4
@@ -300,7 +307,8 @@ def _make_psi_local(g: GridSpec, fc: ForwardConfig, gp: GrowthParams,
     if use_pallas:
         pallas_dep, halo = _make_pallas_slab_deposit(
             g, halo, n_dev, block=tuple(fc.pallas_block),
-            kernel_halo=fc.pallas_halo or None, tail_k=fc.pallas_tail_k)
+            kernel_halo=fc.pallas_halo or None, tail_k=fc.pallas_tail_k,
+            bf16_fwd=fc.pallas_bf16_dep, bf16_bwd=fc.pallas_bf16_grad)
     (kx, ky, kz), inv_k2, nyq = sf.inv_k2_and_mask(g, n_dev, dev, device)
     k2 = kx * kx + ky * ky + kz * kz
     q_pos = _local_positions_x(g, n_dev, dev, device=device)

@@ -3,16 +3,14 @@
 
     python3 chip_smoke.py
 
-Drives the port's three paths and checks the CUDA kernels on the way.
-Every windowed deposit on the card runs the shared-memory kernel
+Drives the port's paths and checks the CUDA kernels on the way.  Every
+windowed deposit on the card runs the shared-memory kernel
 csrc/tsc_deposit_tiled.cu (K1 dense, K3 slab), and every gather the
-shared-memory kernel csrc/tsc_gather_tiled.cu (K2 dense, K4 slab); the
-earlier kernels (push: csrc/tsc_deposit.cu, csrc/tsc_deposit_slab.cu;
-pull, the streamed K1s: csrc/tsc_deposit_stream.cu; thread:
-csrc/tsc_gather.cu, csrc/tsc_gather_slab.cu) stay built as witnesses,
-reached only with `impl=`: each check holds the tiled kernels against them
-bit for bit, the timing phase times them beside them, and their launch
-counters must read 0 on every path.  The paths:
+shared-memory kernel csrc/tsc_gather_tiled.cu (K2 dense, K4 slab), each in
+a float32 and a bf16 variant (input.par's `pallas_bf16_dep` and
+`pallas_bf16_grad`), counted apart.  Each check holds a kernel against its
+plain PyTorch version and against its own earlier call bit for bit.  The
+paths:
   * the 128^3 headline configuration (bench.py:60-155: ALPT +
     plane-parallel RSD, sph_ft, Gaussian likelihood, mass type 1,
     N_eps_fac=8, the kernel deposit with the halo-tail split) through
@@ -27,7 +25,11 @@ counters must read 0 on every path.  The paths:
     `Runner` at 128^3 (K1 and K2 on positions outside the box);
   * the reference's own data/input.par model (Zel'dovich, the SPH mass
     kernel, Gaussian likelihood, adaptive step size) at 128^3 through the
-    command line: windowless deposits, no kernel launch.
+    command line: windowless deposits, no kernel launch;
+  * the 256^3 model with both bf16 keys through the command line, dense
+    (K1 and K2 bf16) and `--sharded` (K3 and K4 bf16);
+  * the offline tools, `python -m barcode_tpu_torch.tools`, on the 256^3
+    session's own dumps.
 
 Phases:
   1. device       card name, count and `nvidia-smi` name/power limit
@@ -41,9 +43,8 @@ Phases:
                   the same bits on every call at 128^3
   4. kernels      K1 (deposit) and K2 (gather) against their plain PyTorch
                   versions at 32^3 with forced contract violators and at the
-                  headline 128^3 shapes with 2 chains; K1 equals the push
-                  and pull witnesses and itself, K2 its thread witness and
-                  itself (with and without the value), bit for bit; the
+                  headline 128^3 shapes with 2 chains; K1 and K2 (with and
+                  without the value) equal to themselves bit for bit; the
                   share of K2's taps outside its tiles' boxes
   5. psi          psi and grad psi at 128^3 on the card (kernels) and on the
                   CPU (plain versions) from the same delta
@@ -51,17 +52,15 @@ Phases:
                   set to 0 just before it and checked against the expected
                   count after (K1 also runs in the deltaEUL/deltaRSS dumps)
   7. kernels256   K1 at the 256^3 shapes (where the JAX package's gate
-                  streams: K1s on the TPU) against its plain version, the
-                  push and pull witnesses and itself, and with forced
-                  violators at 32^3 where the window is wider than the grid;
-                  K2 against its plain version, its witness and itself at
-                  the 256^3 shapes
+                  streams: K1s on the TPU) against its plain version and
+                  itself, and with forced violators at 32^3 where the window
+                  is wider than the grid; K2 against its plain version and
+                  itself at the 256^3 shapes
   8. psi256       psi and grad psi at 256^3 (one chain), card against CPU
   9. cli256       three command-line calls at 256^3 (session; --resume with
                   --profile; restart from deltaLAG_2 + the performance log),
                   each with the launch counters zeroed before it and checked
-                  after; the profile's top kernels by device time; K1 against
-                  the witnesses at the chains' positions after the calls
+                  after; the profile's top kernels by device time
   6b. masskernels the windowless deposits of every mass kernel (NGP, CIC,
                   TSC, SPH, sph_ft) on the 128^3 truth's positions, with and
                   without weights: the same bits on 3 calls, mass conserved,
@@ -84,10 +83,8 @@ Phases:
                   mass types 0, 2, 3 and 5 built on the card
  11. slab_kernels K3 and K4 against their plain versions at 32^3 (violators,
                   windows wider than the slab) and at the 256^3 one-rank
-                  shapes; K3 against its push witness and K4 against its
-                  thread witness, each against itself, bit for bit; per-slab
-                  K3/K4 at 128^3 for 2 and 4 slabs on one card against K1/K2
-                  (K4 also against its witness and itself)
+                  shapes, each against itself bit for bit; per-slab K3/K4 at
+                  128^3 for 2 and 4 slabs on one card against K1/K2
  12. sharded_psi256
                   sharded psi and grad psi at 256^3, one rank over NCCL,
                   against the dense psi on the card
@@ -95,10 +92,23 @@ Phases:
                   three `--sharded` command-line calls at 256^3 (session;
                   --resume; restart from deltaLAG_2 without
                   checkpoint_sharded.npz), launch counters checked
- 14. timing       CUDA-event times of each kernel at its path's shapes, the
-                  witnesses beside the tiled kernels on the same inputs; K1
-                  and K2 also at the chains' positions after the 256^3
-                  session, checked there against their witnesses first
+ 13b. analysis   the 8 offline tools through `tools.main` on the card on
+                  the 256^3 session's dumps: the four statistics at 200 bins,
+                  plain and with each upsampling, the same bits on 3 calls
+                  and against `--device cpu`; lag2eul, density on particle
+                  files of the session's positions, interp_upres to 512^3,
+                  poisson_upres (bit for bit against the CPU); each tool's
+                  seconds and the device memory of each bin plan
+ 13c. bf16        K1-K4 with bf16 against their bf16 plain versions at 32^3
+                  (violators) and at the path shapes, the same bits on 3
+                  calls, within 1e-2 * max of float32 and not equal; psi
+                  and grad psi with both keys at 128^3, card against CPU; a
+                  256^3 command-line session with both keys, dense and
+                  --sharded, its bf16 launch counters checked, its steps/s
+                  and acceptance beside the float32 session's
+ 14. timing       CUDA-event times of each kernel and its bf16 variant at
+                  its path's shapes, on the same inputs; K1 and K2 also at
+                  the chains' positions after the 256^3 session
 
 Every phase raises on failure, so any failure exits non-zero.  It needs a
 card: without one (or without the package beside it) it exits non-zero
@@ -114,7 +124,9 @@ the line before it lists the kernels.
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
+import io
 import json
 import math
 import shutil
@@ -253,17 +265,14 @@ def violator_positions(g: GridSpec, chains: int, n_viol: int, dev,
     return torch.remainder(pos, L).contiguous()
 
 
-def check_same(label, gather):
-    """A gather (`gather(impl)`) equal bit for bit to its thread witness
-    (the earlier kernel) and to itself from call to call; returns the
-    tiled output."""
-    out, again, thread = gather("tiled"), gather("tiled"), gather("thread")
-    same = {"thread": torch.equal(out, thread),
-            "itself": torch.equal(out, again)}
-    print(f"  {label}: == " + ", == ".join(f"{k} {v}"
-                                           for k, v in same.items()))
-    if not all(same.values()):
-        raise RuntimeError(f"{label} differs from its witness or itself")
+def check_same(label, run):
+    """`run()` (a kernel call) equal to itself bit for bit from call to
+    call; returns the first output."""
+    out, again = run(), run()
+    same = torch.equal(out, again)
+    print(f"  {label}: == itself {same}")
+    if not same:
+        raise RuntimeError(f"{label} differs from itself")
     return out
 
 
@@ -279,57 +288,48 @@ def print_taps_outside_box(label, field, pos, g, halo, block, slab=None):
     return outside / max(total, 1)
 
 
-def check_gather(cot, pos, g, halo, block, label=""):
-    """K2 with and without the value against its plain version, its thread
-    witness and itself; returns the errors keyed "K2 value=<want_value>"."""
+def check_gather(cot, pos, g, halo, block, label="", bf16=False):
+    """K2 with and without the value against its plain version and itself;
+    returns the errors keyed "K2 value=<want_value>"."""
     errs = {}
     for want_value in (False, True):
         out = check_same(
             f"K2{label} want_value={want_value}",
-            lambda impl: tk.tsc_gather_grads_window(
-                cot, pos, g, halo, block, want_value, impl=impl))
+            lambda: tk.tsc_gather_grads_window(cot, pos, g, halo, block,
+                                               want_value, bf16=bf16))
         sync(pos.device)
         ref = tk.tsc_gather_grads_window_plain(cot, pos, g, halo, block,
-                                               want_value)
+                                               want_value, bf16=bf16)
         errs[f"K2 value={want_value}"] = compare(
             f"K2{label} want_value={want_value}", out, ref, TOL_GATHER_REL)
-    print_taps_outside_box(f"K2{label}", cot, pos, g, halo, block)
+    if not bf16:
+        print_taps_outside_box(f"K2{label}", cot, pos, g, halo, block)
     return errs
 
 
-def check_witnesses(label, g, pos, halo, block, weights):
-    """K1 (the tiled kernel) against its plain version (tolerance), and
-    against the push and pull witnesses and itself (bit for bit); returns
-    its error."""
-    out = tk.tsc_deposit_window(pos, g, halo, block, weights=weights)
-    again = tk.tsc_deposit_window(pos, g, halo, block, weights=weights)
-    push = tk.tsc_deposit_window(pos, g, halo, block, weights=weights,
-                                 impl="push")
-    pull = tk.tsc_deposit_window(pos, g, halo, block, weights=weights,
-                                 impl="pull")
+def check_deposit(label, g, pos, halo, block, weights, bf16=False):
+    """K1 (the tiled kernel) against its plain version (tolerance) and
+    itself (bit for bit); returns its error."""
+    out = check_same(f"K1 {label}", lambda: tk.tsc_deposit_window(
+        pos, g, halo, block, weights=weights, bf16=bf16))
     sync(pos.device)
-    ref = tk.tsc_deposit_window_plain(pos, g, halo, block, weights=weights)
-    err = compare(f"K1 {label} vs plain", out, ref, TOL_DEP_REL)
-    same = {"push": torch.equal(out, push), "pull": torch.equal(out, pull),
-            "itself": torch.equal(out, again)}
-    print(f"  K1 {label}: == " + ", == ".join(f"{k} {v}"
-                                             for k, v in same.items()))
-    if not all(same.values()):
-        raise RuntimeError(f"K1 {label} differs from a witness or itself")
-    return err
+    ref = tk.tsc_deposit_window_plain(pos, g, halo, block, weights=weights,
+                                      bf16=bf16)
+    return compare(f"K1 {label} vs plain", out, ref, TOL_DEP_REL)
 
 
-def check_kernels(label, g, pos, halo, block_dep, block, weights, cot):
-    """K1 (unweighted + weighted; against the plain version, the witnesses
-    and itself) and K2 (with and without the value) against the plain
-    versions; returns the errors of the main-path calls."""
+def check_kernels(label, g, pos, halo, block_dep, block, weights, cot,
+                  bf16=False):
+    """K1 (unweighted + weighted) and K2 (with and without the value)
+    against their plain versions and themselves; returns the errors of
+    the main-path calls."""
     print(f"  [{label}] grid {g.shape}, chains {pos.shape[0]}, halo {halo}, "
           f"K1 block {block_dep}, K2 block {block}, violators "
           f"{tk.deposit_violations(pos, g, halo).tolist()}", flush=True)
-    errs = {f"K1 {tag}": check_witnesses(f"{label} {tag}", g, pos, halo,
-                                         block_dep, w)
+    errs = {f"K1 {tag}": check_deposit(f"{label} {tag}", g, pos, halo,
+                                       block_dep, w, bf16)
             for w, tag in ((None, "unweighted"), (weights, "weighted"))}
-    errs.update(check_gather(cot, pos, g, halo, block, f" {label}"))
+    errs.update(check_gather(cot, pos, g, halo, block, f" {label}", bf16))
     return errs
 
 
@@ -545,13 +545,18 @@ seed = 1
 """
 
 
-def write_input_par(tmp: str) -> Path:
-    """The 256^3 configuration's input.par (N_BIG < 256 keeps the cell size,
-    for rehearsals of this script's control flow on the CPU)."""
+BF16_KEYS = "pallas_bf16_dep = true\npallas_bf16_grad = true\n"
+
+
+def write_input_par(tmp: str, bf16: bool = False) -> Path:
+    """The 256^3 configuration's input.par, with both bf16 kernel keys if
+    `bf16` (N_BIG < 256 keeps the cell size, for rehearsals of this
+    script's control flow on the CPU)."""
     n = N_BIG
     path = Path(tmp) / "input.par"
     path.write_text(INPUT_PAR_256.format(n=n, box=BOX * n / N_BIG,
-                                         tail_k=max(n**3 // 2048, 1024)))
+                                         tail_k=max(n**3 // 2048, 1024))
+                    + (BF16_KEYS if bf16 else ""))
     return path
 
 
@@ -559,7 +564,7 @@ def phase_kernels256(dev, conf: RunConfig, tmp: str):
     """K1 at the 256^3 configuration's shapes: its displaced positions
     (the mock truth and half of it, through the forward model), its
     resolved halo and block, with and without the tail weights, against
-    its plain version, the witnesses and itself; K2 on the same positions
+    its plain version and itself; K2 on the same positions
     at the path's gather block; then K1 at 32^3 with block (16, 16), hx 12
     and forced violators (WX = 40 > 32)."""
     runner = Runner(conf, out_dir=tmp, device=dev)
@@ -585,8 +590,7 @@ def phase_kernels256(dev, conf: RunConfig, tmp: str):
     if not chosen[True]:
         raise RuntimeError("the stream gate's parity: the JAX package "
                            "streams every weighted deposit at 256^3")
-    errs = {tag: check_witnesses(f"{g.N1}^3 {tag}", g, pos, halo, block_dep,
-                                 w)
+    errs = {tag: check_deposit(f"{g.N1}^3 {tag}", g, pos, halo, block_dep, w)
             for tag, w in (("unweighted", None), ("weighted", ok))}
     block = tuple(fc.pallas_block)
     cot = torch.randn((N_CHAINS,) + g.shape, device=dev,
@@ -603,8 +607,7 @@ def phase_kernels256(dev, conf: RunConfig, tmp: str):
           f"{16 + 2 * tk._round_halo(12, 16)} > N 32, violators "
           f"{tk.deposit_violations(pos32, g32, 3).tolist()} (of halo 3)")
     for tag, w in (("unweighted", None), ("weighted", w32)):
-        check_witnesses(f"32^3 wide window {tag}", g32, pos32, 12, (16, 16),
-                        w)
+        check_deposit(f"32^3 wide window {tag}", g32, pos32, 12, (16, 16), w)
     inputs = dict(g=g, pos=pos, ok=ok, cot=cot, halo=halo, block=block,
                   block_dep=block_dep)
     return runner, delta, inputs, errs
@@ -656,24 +659,22 @@ def top_kernels(trace_path: Path, n: int = 10):
               f"{name[:110]}")
 
 
-KERNEL_LAUNCHERS = {"K1": tk.tsc_deposit_window,
-                    "K2": tk.tsc_gather_grads_window,
-                    "K3": tk.tsc_deposit_slab, "K4": tk.tsc_gather_grads_slab,
-                    # the witnesses: 0 on every path
-                    "K1 push": tk.tsc_deposit_window_push,
-                    "K1s pull": tk.tsc_deposit_window_stream,
-                    "K3 push": tk.tsc_deposit_slab_push,
-                    "K2 thread": tk.tsc_gather_grads_window_thread,
-                    "K4 thread": tk.tsc_gather_grads_slab_thread}
+# each kernel's launch counter: (wrapper, attribute); the bf16 variants
+# count apart
+KERNEL_LAUNCHERS = {
+    f"K{k}{' bf16' * bf}": (fn, "launches_bf16" if bf else "launches")
+    for bf in (False, True)
+    for k, fn in ((1, tk.tsc_deposit_window), (2, tk.tsc_gather_grads_window),
+                  (3, tk.tsc_deposit_slab), (4, tk.tsc_gather_grads_slab))}
 
 
 def zero_launches():
-    for f in KERNEL_LAUNCHERS.values():
-        f.launches = 0
+    for fn, attr in KERNEL_LAUNCHERS.values():
+        setattr(fn, attr, 0)
 
 
 def read_launches():
-    return {k: f.launches for k, f in KERNEL_LAUNCHERS.items()}
+    return {k: getattr(fn, attr) for k, (fn, attr) in KERNEL_LAUNCHERS.items()}
 
 
 def path_inputs(runner: Runner) -> dict:
@@ -692,7 +693,9 @@ def path_inputs(runner: Runner) -> dict:
 
 
 def phase_cli256(dev, tmp: str, sharded: bool = False, chains: int = 1,
-                 keep: dict | None = None, par_text: str | None = None):
+                 keep: dict | None = None, par_text: str | None = None,
+                 bf16: bool = False, calls: tuple | None = None,
+                 report: dict | None = None):
     """Three command-line calls at 256^3: a session; --resume with
     --profile; a restart from deltaLAG_2 + the performance log after the
     checkpoint is removed.  With `sharded` the calls add --sharded and
@@ -701,14 +704,17 @@ def phase_cli256(dev, tmp: str, sharded: bool = False, chains: int = 1,
     Launch counters are zeroed before each call and checked after it (on
     every rank).  Returns the path's launches of each kernel.  A dense
     run fills `keep` with the deposit's inputs at the chains' positions
-    after the last call (its halo, block, positions and tail weights).
-    `par_text` replaces the 256^3 input.par with another model whose
-    deposits are windowless (no kernel launches; no profile)."""
+    after the last call (its halo, block, positions and tail weights) and
+    its output directory (`out`).  `par_text` replaces the 256^3 input.par
+    with another model whose deposits are windowless (no kernel launches;
+    no profile).  `bf16` adds both bf16 kernel keys (the bf16 variants
+    launch; no profile).  `calls` names the calls to make (default all
+    three); `report` gets each call's steps/s and acceptance."""
     rank = torch.distributed.get_rank() \
         if torch.distributed.is_initialized() else 0
     (Path(tmp) / f"par{rank}").mkdir(exist_ok=True)
     if par_text is None:
-        par = write_input_par(Path(tmp) / f"par{rank}")
+        par = write_input_par(Path(tmp) / f"par{rank}", bf16)
     else:
         par = Path(tmp) / f"par{rank}" / "input.par"
         par.write_text(par_text)
@@ -723,11 +729,12 @@ def phase_cli256(dev, tmp: str, sharded: bool = False, chains: int = 1,
     world = torch.distributed.get_world_size() \
         if torch.distributed.is_initialized() else 1
     profile = ["--profile", str(prof)] \
-        if world == 1 and par_text is None else []
-    calls = (("session", [str(par), *common, "--samples", "1", "--nan-check"]),
+        if world == 1 and par_text is None and not bf16 else []
+    argvs = (("session", [str(par), *common, "--samples", "1", "--nan-check"]),
              ("resume", [str(par), *common, "--resume", "--samples", "2",
                          *profile]),
              ("restart", [str(par), "2", *common, "--samples", "3"]))
+    calls = [(n, a) for n, a in argvs if calls is None or n in calls]
     total = collections.Counter()
     if on_card:
         torch.cuda.reset_peak_memory_stats()
@@ -773,10 +780,11 @@ def phase_cli256(dev, tmp: str, sharded: bool = False, chains: int = 1,
         # kernels launch only where they are on the CUDA device; the
         # sharded dumps run the dense windowless deposit, as in the JAX
         # package (sharded_runner.py:165-171)
+        tag = " bf16" if bf16 else ""
         if on_card and sharded:
-            expected.update(K3=grads, K4=grads)
+            expected.update({f"K3{tag}": grads, f"K4{tag}": grads})
         elif on_card and par_text is None:
-            expected.update(K1=grads + n_dep, K2=grads)
+            expected.update({f"K1{tag}": grads + n_dep, f"K2{tag}": grads})
         ck = np.load(out / f"{ckpt}.npz")
         accepted, psi = ck["state_accepted"], ck["state_psi"]
         steps = 8 * attempts
@@ -789,6 +797,10 @@ def phase_cli256(dev, tmp: str, sharded: bool = False, chains: int = 1,
                   f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
         print(f"  {name}: accepted {accepted.tolist()}, psi {psi.tolist()}, "
               f"new dumps {new}, rewritten {rewritten}")
+        if report is not None:
+            report[name] = dict(steps_per_s=steps / (t2 - t1),
+                                attempts=attempts,
+                                accepted=accepted.tolist())
         print(f"  {name}: launches {launches}, expected {expected} (init"
               f"{' + restart' if name == 'restart' else ''} + 8 per attempt"
               f"{'' if sharded else '; K1 also one per dumped field: %d' % n_dep})")
@@ -806,7 +818,7 @@ def phase_cli256(dev, tmp: str, sharded: bool = False, chains: int = 1,
         last = accepted
         total.update(launches)
         if name == "restart" and keep is not None and not sharded:
-            keep.update(path_inputs(runner))
+            keep.update(path_inputs(runner), out=out)
         if name == "resume" and profile:
             top_kernels(prof / "trace.json")
             shutil.rmtree(prof)
@@ -881,34 +893,30 @@ def fold_slabs(exts, g: GridSpec, n1: int, h: int):
     return total
 
 
-def check_slab(label, g, pos, n1, dev, h, weights, cot):
-    """K3 (against its plain version, its push witness and itself) and K4
-    (with and without the value; against its plain version, its thread
-    witness and itself) on one slab; returns the errors and K4's share of
-    taps outside the box."""
-    out = tk.tsc_deposit_slab(pos, g, n1, dev, h, weights=weights)
-    again = tk.tsc_deposit_slab(pos, g, n1, dev, h, weights=weights)
-    push = tk.tsc_deposit_slab(pos, g, n1, dev, h, weights=weights,
-                               impl="push")
+def check_slab(label, g, pos, n1, dev, h, weights, cot, bf16=False):
+    """K3 and K4 (with and without the value) on one slab against their
+    plain versions and themselves; returns the errors and (float32) K4's
+    share of taps outside the box."""
+    out = check_same(f"K3 {label}", lambda: tk.tsc_deposit_slab(
+        pos, g, n1, dev, h, weights=weights, bf16=bf16))
     sync(pos.device)
-    ref = tk.tsc_deposit_slab_plain(pos, g, n1, dev, h, weights=weights)
+    ref = tk.tsc_deposit_slab_plain(pos, g, n1, dev, h, weights=weights,
+                                    bf16=bf16)
     errs = {"K3": compare(f"K3 {label}", out, ref, TOL_DEP_REL)}
-    same = {"push": torch.equal(out, push), "itself": torch.equal(out, again)}
-    print(f"  K3 {label}: == push {same['push']}, == itself {same['itself']}")
-    if not all(same.values()):
-        raise RuntimeError(f"K3 {label} differs from its witness or itself")
     for want_value in (False, True):
         o = check_same(
             f"K4 {label} want_value={want_value}",
-            lambda impl: tk.tsc_gather_grads_slab(
-                cot, pos, g, n1, dev, h, want_value=want_value, impl=impl))
+            lambda: tk.tsc_gather_grads_slab(cot, pos, g, n1, dev, h,
+                                             want_value=want_value,
+                                             bf16=bf16))
         sync(pos.device)
         r = tk.tsc_gather_grads_slab_plain(cot, pos, g, n1, dev, h,
-                                           want_value=want_value)
+                                           want_value=want_value, bf16=bf16)
         errs[f"K4 value={want_value}"] = compare(
             f"K4 {label} want_value={want_value}", o, r, TOL_GATHER_REL)
-    errs["K4 outside"] = print_taps_outside_box(
-        f"K4 {label}", cot, pos, g, h, (8, 8), slab=(n1, dev))
+    if not bf16:
+        errs["K4 outside"] = print_taps_outside_box(
+            f"K4 {label}", cot, pos, g, h, (8, 8), slab=(n1, dev))
     return errs
 
 
@@ -967,8 +975,8 @@ def phase_slab_kernels(dev, inputs, inputs256):
             ext = cot1.index_select(-3, rows).contiguous()
             outs = {want_value: check_same(
                 f"K4 slab {k} of {D} at {g1.N1}^3 want_value={want_value}",
-                lambda impl: tk.tsc_gather_grads_slab(
-                    ext, p, g1, n1, k, h1, block, want_value, impl=impl))
+                lambda: tk.tsc_gather_grads_slab(ext, p, g1, n1, k, h1,
+                                                 block, want_value))
                 for want_value in (False, True)}
             grads.append(outs[False])
         compare(f"K3 {D} slabs of {g1.N1}^3 folded vs K1", fold_slabs(
@@ -1191,7 +1199,7 @@ def eh98_transf(g: GridSpec, conf: RunConfig, device):
 def phase_options(dev, tmp: str):
     """psi and grad psi at 128^3, card against CPU: (a) radial RSD about a
     box corner through the kernel deposit with the tail split, K1/K2 also
-    against their plain versions (and their witnesses) on those positions;
+    against their plain versions and themselves on those positions;
     (b) 2LPT with 'findif' derivatives; (c) ALPT with TRANSF kernels from
     the EH98 table; (d) NGP with mass type 2, whose likelihood force is the
     zero field; (e) the resolution-independent GRF at 64^3 and 128^3 from
@@ -1324,99 +1332,116 @@ seed = 1
 
 TILED_SRC = "barcode_tpu_torch/csrc/tsc_deposit_tiled.cu"
 DEP_REP = "barcode_tpu/forward/pallas_deposit.py:789"
-STREAM_REP = "barcode_tpu/forward/pallas_deposit.py:274"
 SLAB_REP = "barcode_tpu/forward/pallas_deposit.py:675"
 GAT_SRC = "barcode_tpu_torch/csrc/tsc_gather_tiled.cu"
 GAT_REP = "barcode_tpu/forward/pallas_deposit.py:530"
 SLAB_GAT_REP = "barcode_tpu/forward/pallas_deposit.py:744"
 
 
-def deposit_group(label, g, pos, halo, block, w, err, launches, note):
-    """Timing rows of one dense deposit input: K1 (the tiled kernel) and,
-    on the same inputs, its push and pull witnesses (the same bits, so the
-    same error; 0 launches on every path)."""
+def timing_row(key, name, fn, plain, src, rep, launches, note, nbytes, ops,
+               err, tol):
+    """One kernel to time: `fn` launches it, `plain` runs its plain
+    version; `err` is its error against that version, or None for the
+    timing phase to take it (within `tol`)."""
+    return dict(key=key, name=name, fn=fn, plain=plain, src=src, rep=rep,
+                launches=launches, note=note, nbytes=nbytes, ops=ops, err=err,
+                tol=tol)
+
+
+def deposit_rows(label, g, pos, halo, block, w, err, launches, note,
+                 bf16=None):
+    """K1 on one dense deposit input; with `bf16` = (launches, note) also
+    its bf16 variant on the same inputs."""
     n_part = pos.shape[0] * g.N
     n_active = n_part if w is None else int(w.sum())
     nbytes = n_part * (12 + (0 if w is None else 4) + 4)
 
-    def dep(impl):
-        return lambda: tk.tsc_deposit_window(pos, g, halo, block, weights=w,
-                                             impl=impl)
-    return dict(
-        plain=lambda: tk.tsc_deposit_window_plain(pos, g, halo, block,
-                                                  weights=w),
-        nbytes=nbytes, ops=n_active * OPS_K1, err=err, rows=[
-            (f"K1{label}", f"tsc_deposit_window{label}", dep("tiled"),
-             TILED_SRC, DEP_REP, launches, note),
-            (f"K1{label} push", f"tsc_deposit_window_push{label}",
-             dep("push"), "barcode_tpu_torch/csrc/tsc_deposit.cu", DEP_REP,
-             0, "witness: the earlier K1"),
-            (f"K1s{label} pull", f"tsc_deposit_window_stream{label}",
-             dep("pull"), "barcode_tpu_torch/csrc/tsc_deposit_stream.cu",
-             STREAM_REP, 0, "witness: the earlier K1s")])
+    def row(b, key, name, n, nt, e):
+        return timing_row(
+            key, name, lambda: tk.tsc_deposit_window(pos, g, halo, block,
+                                                     weights=w, bf16=b),
+            lambda: tk.tsc_deposit_window_plain(pos, g, halo, block,
+                                                weights=w, bf16=b),
+            TILED_SRC, DEP_REP, n, nt, nbytes, n_active * OPS_K1, e,
+            TOL_DEP_REL)
+    rows = [row(False, f"K1{label}", f"tsc_deposit_window{label}", launches,
+                note, err)]
+    if bf16 is not None:
+        rows.append(row(True, f"K1 bf16{label}",
+                        f"tsc_deposit_window bf16{label}", *bf16, None))
+    return rows
 
 
-def slab_group(label, g, pos, n1, h, w, err, launches, note):
-    """Timing rows of one slab deposit input: K3 (the tiled kernel) and its
-    push witness on the same inputs."""
+def slab_rows(label, g, pos, n1, h, w, err, launches, note, bf16=None):
+    """K3 on one slab deposit input; with `bf16` = (launches, note) also
+    its bf16 variant on the same inputs."""
     n_part = pos.shape[0] * n1 * g.N2 * g.N3
     n_ext = pos.shape[0] * (n1 + 2 * h) * g.N2 * g.N3
     n_active = n_part if w is None else int(w.sum())
+    nbytes = n_part * (12 + (0 if w is None else 4)) + 4 * n_ext
 
-    def dep(impl):
-        return lambda: tk.tsc_deposit_slab(pos, g, n1, 0, h, weights=w,
-                                           impl=impl)
-    return dict(
-        plain=lambda: tk.tsc_deposit_slab_plain(pos, g, n1, 0, h, weights=w),
-        nbytes=n_part * (12 + (0 if w is None else 4)) + 4 * n_ext,
-        ops=n_active * OPS_K3, err=err, rows=[
-            (f"K3{label}", f"tsc_deposit_slab{label}", dep("tiled"),
-             TILED_SRC, SLAB_REP, launches, note),
-            (f"K3{label} push", f"tsc_deposit_slab_push{label}", dep("push"),
-             "barcode_tpu_torch/csrc/tsc_deposit_slab.cu", SLAB_REP, 0,
-             "witness: the earlier K3")])
-
-
-def gather_group(key, name, gather, plain, nbytes, ops, err, slab, launches,
-                 note):
-    """Timing rows of one gather input: K2 or K4 (`slab`) through the tiled
-    kernel and, on the same inputs, its thread witness (the same bits, so
-    the same error; 0 launches on every path).  `gather(impl)` runs it."""
-    rep, witness = (SLAB_GAT_REP, "tsc_gather_slab.cu") if slab else \
-        (GAT_REP, "tsc_gather.cu")
-    k = "K4" if slab else "K2"
-    return dict(plain=plain, nbytes=nbytes, ops=ops, err=err, rows=[
-        (key, name, lambda: gather("tiled"), GAT_SRC, rep, launches, note),
-        (f"{key} thread", name.replace("grads_window", "grads_window_thread")
-         .replace("grads_slab", "grads_slab_thread"),
-         lambda: gather("thread"), f"barcode_tpu_torch/csrc/{witness}", rep,
-         0, f"witness: the earlier {k}")])
+    def row(b, key, name, n, nt, e):
+        return timing_row(
+            key, name, lambda: tk.tsc_deposit_slab(pos, g, n1, 0, h,
+                                                   weights=w, bf16=b),
+            lambda: tk.tsc_deposit_slab_plain(pos, g, n1, 0, h, weights=w,
+                                              bf16=b),
+            TILED_SRC, SLAB_REP, n, nt, nbytes, n_active * OPS_K3, e,
+            TOL_DEP_REL)
+    rows = [row(False, f"K3{label}", f"tsc_deposit_slab{label}", launches,
+                note, err)]
+    if bf16 is not None:
+        rows.append(row(True, f"K3 bf16{label}",
+                        f"tsc_deposit_slab bf16{label}", *bf16, None))
+    return rows
 
 
-def slab_groups(slab, slab_errs, launches_sh):
-    """The timing groups of K3 and K4: at the 256^3 one-rank shapes of the
-    sharded path (weighted: the tail split zero-weights violators), K3
-    also unweighted, and both on slab 0 of 2 slabs at 256^3 (n1_loc = 128,
-    1 chain, the same kernel halo), where their error is taken here."""
+def gather_rows(key, name, gather, plain, nbytes, ops, err, slab, launches,
+                note, bf16=None):
+    """K2 or K4 (`slab`) on one gather input: `gather(bf16)` runs it,
+    `plain(bf16)` its plain version; with `bf16` = (launches, note) also
+    its bf16 variant on the same inputs."""
+    rep = SLAB_GAT_REP if slab else GAT_REP
+    base, _, label = name.partition(" ")
+    rows = [timing_row(key, name, lambda: gather(False), lambda: plain(False),
+                       GAT_SRC, rep, launches, note, nbytes, ops, err,
+                       TOL_GATHER_REL)]
+    if bf16 is not None:
+        rows.append(timing_row(
+            f"{key} bf16", f"{base} bf16{' ' + label if label else ''}",
+            lambda: gather(True), lambda: plain(True), GAT_SRC, rep, *bf16,
+            nbytes, ops, None, TOL_GATHER_REL))
+    return rows
+
+
+def slab_timing_rows(slab, slab_errs, launches_sh, launches_bf16):
+    """The timing rows of K3 and K4: at the 256^3 one-rank shapes of the
+    sharded path (weighted: the tail split zero-weights violators; their
+    bf16 variants beside them), K3 also unweighted, and both on slab 0 of
+    2 slabs at 256^3 (n1_loc = 128, 1 chain, the same kernel halo), where
+    their error is taken here."""
     g, pos, ok, cot, h = (slab[k] for k in ("g", "pos", "ok", "cot", "halo"))
     n1 = g.N1
     n_ext = (n1 + 2 * h) * g.N2 * g.N3
     note = f"{N_BIG}^3 --sharded command-line path, 8 per attempt"
-    groups = [
-        slab_group("", g, pos, n1, h, ok, slab_errs["K3 weighted"],
-                   launches_sh["K3"], note),
-        slab_group(f" ({N_BIG}^3, unweighted)", g, pos, n1, h, None,
+    note16 = f"{N_BIG}^3 --sharded bf16 command-line session"
+    rows = [
+        *slab_rows("", g, pos, n1, h, ok, slab_errs["K3 weighted"],
+                   launches_sh["K3"], note,
+                   bf16=(launches_bf16["K3 bf16"], note16)),
+        *slab_rows(f" ({N_BIG}^3, unweighted)", g, pos, n1, h, None,
                    slab_errs["K3 unweighted"], 0,
                    "the path weights every K3 call (tail split)"),
-        gather_group(
+        *gather_rows(
             "K4", "tsc_gather_grads_slab",
-            lambda impl: tk.tsc_gather_grads_slab(cot, pos, g, n1, 0, h,
-                                                  want_value=False, impl=impl),
-            lambda: tk.tsc_gather_grads_slab_plain(cot, pos, g, n1, 0, h,
-                                                   want_value=False),
+            lambda b: tk.tsc_gather_grads_slab(cot, pos, g, n1, 0, h,
+                                               want_value=False, bf16=b),
+            lambda b: tk.tsc_gather_grads_slab_plain(cot, pos, g, n1, 0, h,
+                                                     want_value=False,
+                                                     bf16=b),
             4 * n_ext + g.N * (12 + 12), g.N * OPS_K4,
             slab_errs["K4 value=False weighted"], True, launches_sh["K4"],
-            note)]
+            note, bf16=(launches_bf16["K4 bf16"], note16))]
     # slab 0 of 2 at 256^3
     m1 = n1 // 2
     p2 = pos[:, :, :m1].contiguous()
@@ -1425,28 +1450,30 @@ def slab_groups(slab, slab_errs, launches_sh):
     m_part, m_ext = g.N // 2, (m1 + 2 * h) * g.N2 * g.N3
     e3 = check_slab("slab 0 of 2", g, p2, m1, 0, h, ok2, cot2)
     two = "2 slabs: not on the one-rank path"
-    groups += [
-        slab_group(f" ({N_BIG}^3, slab 0 of 2)", g, p2, m1, h, ok2, e3["K3"],
+    rows += [
+        *slab_rows(f" ({N_BIG}^3, slab 0 of 2)", g, p2, m1, h, ok2, e3["K3"],
                    0, two),
-        gather_group(
+        *gather_rows(
             "K4@2slabs", f"tsc_gather_grads_slab ({N_BIG}^3, slab 0 of 2)",
-            lambda impl: tk.tsc_gather_grads_slab(cot2, p2, g, m1, 0, h,
-                                                  want_value=False, impl=impl),
-            lambda: tk.tsc_gather_grads_slab_plain(cot2, p2, g, m1, 0, h,
-                                                   want_value=False),
+            lambda b: tk.tsc_gather_grads_slab(cot2, p2, g, m1, 0, h,
+                                               want_value=False, bf16=b),
+            lambda b: tk.tsc_gather_grads_slab_plain(cot2, p2, g, m1, 0, h,
+                                                     want_value=False,
+                                                     bf16=b),
             4 * m_ext + m_part * 24, m_part * OPS_K4, e3["K4 value=False"],
             True, 0, two)]
-    return groups
+    return rows
 
 
 def phase_timing(inputs, errs, launches, per_attempt, inputs256, errs256,
-                 launches256, path256, slab, slab_errs, launches_sh):
+                 launches256, path256, slab, slab_errs, launches_sh,
+                 launches_bf16):
     """CUDA-event times of each kernel and its plain version at its path's
-    shapes, the witnesses beside the tiled deposit on the same inputs: K1,
-    K2 at 128^3; K1 and K2 at 256^3 on the truth's positions, K1 also at
-    the chains' positions after the 256^3 session (`path256`, checked
-    against the witnesses here); K3, K4 at the 256^3 one-rank and 2-slab
-    shapes.  Each kernel's bound; returns the kernels' JSON rows."""
+    shapes: K1, K2 at 128^3; K1 and K2 at 256^3 on the truth's positions
+    and at the chains' positions after the 256^3 session (`path256`,
+    checked here, with their bf16 variants beside them); K3, K4 at the
+    256^3 one-rank shapes (with their bf16 variants) and on slab 0 of 2.
+    Each kernel's bound; returns the kernels' JSON rows."""
     g, pos, ok, cot = inputs["g"], inputs["pos"], inputs["ok"], inputs["cot"]
     halo, block, block_dep = inputs["halo"], inputs["block"], inputs["block_dep"]
     n_part = pos.shape[0] * g.N
@@ -1459,8 +1486,8 @@ def phase_timing(inputs, errs, launches, per_attempt, inputs256, errs256,
     print(f"  {gp.N1}^3 chains after the session: violators per chain "
           f"{(okp == 0).sum((1, 2, 3)).tolist()}, halo {halop}, block "
           f"{blockp}")
-    errp = check_witnesses(f"{gp.N1}^3 path positions weighted", gp, posp,
-                           halop, blockp, okp)
+    errp = check_deposit(f"{gp.N1}^3 path positions weighted", gp, posp,
+                         halop, blockp, okp)
     gblockp, n_partp = path256["block"], posp.shape[0] * gp.N
     cotp = torch.randn(posp.shape[:1] + gp.shape, device=posp.device,
                        generator=torch.Generator(device=posp.device)
@@ -1468,62 +1495,313 @@ def phase_timing(inputs, errs, launches, per_attempt, inputs256, errs256,
     errp2 = check_gather(cotp, posp, gp, halop, gblockp,
                          f" {gp.N1}^3 path positions")
     note256 = f"{N_BIG}^3 command-line path, 8 per attempt"
-    groups = [
-        deposit_group("", g, pos, halo, block_dep, ok, errs["K1 weighted"],
+    note16 = f"{N_BIG}^3 bf16 command-line session"
+    rows = [
+        *deposit_rows("", g, pos, halo, block_dep, ok, errs["K1 weighted"],
                       launches["K1"], f"{per_attempt['K1']} per attempt"),
-        gather_group(
+        *gather_rows(
             "K2", "tsc_gather_grads_window",
-            lambda impl: tk.tsc_gather_grads_window(cot, pos, g, halo, block,
-                                                    False, impl=impl),
-            lambda: tk.tsc_gather_grads_window_plain(cot, pos, g, halo, block,
-                                                     False),
+            lambda b: tk.tsc_gather_grads_window(cot, pos, g, halo, block,
+                                                 False, bf16=b),
+            lambda b: tk.tsc_gather_grads_window_plain(cot, pos, g, halo,
+                                                       block, False, bf16=b),
             n_part * (4 + 12 + 12), n_part * OPS_K2, errs["K2 value=False"],
             False, launches["K2"], f"{per_attempt['K2']} per attempt"),
-        deposit_group(f" ({N_BIG}^3)", g2, pos2, halo2, block2, ok2,
+        *deposit_rows(f" ({N_BIG}^3)", g2, pos2, halo2, block2, ok2,
                       errs256["weighted"], launches256["K1"],
                       note256 + "; the truth's positions"),
-        deposit_group(f" ({N_BIG}^3, path positions)", gp, posp, halop,
+        *deposit_rows(f" ({N_BIG}^3, path positions)", gp, posp, halop,
                       blockp, okp, errp, launches256["K1"],
-                      note256 + "; the chains after the session"),
-        gather_group(
+                      note256 + "; the chains after the session",
+                      bf16=(launches_bf16["K1 bf16"], note16)),
+        *gather_rows(
             "K2@256", f"tsc_gather_grads_window ({N_BIG}^3)",
-            lambda impl: tk.tsc_gather_grads_window(cot2, pos2, g2, halo2,
-                                                    gblock2, False, impl=impl),
-            lambda: tk.tsc_gather_grads_window_plain(cot2, pos2, g2, halo2,
-                                                     gblock2, False),
+            lambda b: tk.tsc_gather_grads_window(cot2, pos2, g2, halo2,
+                                                 gblock2, False, bf16=b),
+            lambda b: tk.tsc_gather_grads_window_plain(cot2, pos2, g2, halo2,
+                                                       gblock2, False,
+                                                       bf16=b),
             n_part2 * (4 + 12 + 12), n_part2 * OPS_K2,
             errs256["K2 value=False"], False, launches256["K2"],
             note256 + "; the truth's positions"),
-        gather_group(
+        *gather_rows(
             "K2@256 path", f"tsc_gather_grads_window ({N_BIG}^3, path "
             "positions)",
-            lambda impl: tk.tsc_gather_grads_window(cotp, posp, gp, halop,
-                                                    gblockp, False, impl=impl),
-            lambda: tk.tsc_gather_grads_window_plain(cotp, posp, gp, halop,
-                                                     gblockp, False),
+            lambda b: tk.tsc_gather_grads_window(cotp, posp, gp, halop,
+                                                 gblockp, False, bf16=b),
+            lambda b: tk.tsc_gather_grads_window_plain(cotp, posp, gp, halop,
+                                                       gblockp, False,
+                                                       bf16=b),
             n_partp * (4 + 12 + 12), n_partp * OPS_K2, errp2["K2 value=False"],
             False, launches256["K2"],
-            note256 + "; the chains after the session"),
-        *slab_groups(slab, slab_errs, launches_sh)]
-    rows = []
-    for grp in groups:
-        plain_ms = cuda_ms(grp["plain"], 3, warmup=1)
-        t_bytes = grp["nbytes"] / HBM_BYTES_PER_S * 1e3
-        t_ops = grp["ops"] / F32_FLOPS_PER_S * 1e3
+            note256 + "; the chains after the session",
+            bf16=(launches_bf16["K2 bf16"], note16)),
+        *slab_timing_rows(slab, slab_errs, launches_sh, launches_bf16)]
+    out = []
+    for r in rows:
+        plain_ms = cuda_ms(r["plain"], 3, warmup=1)
+        err = r["err"]
+        if err is None:
+            err = compare(f"{r['key']} vs plain", r["fn"](), r["plain"](),
+                          r["tol"])
+        t_bytes = r["nbytes"] / HBM_BYTES_PER_S * 1e3
+        t_ops = r["ops"] / F32_FLOPS_PER_S * 1e3
         bound = max(t_bytes, t_ops)
-        for key, name, fn, src, rep, n_launch, note in grp["rows"]:
-            ms = cuda_ms(fn, 20)
-            rows.append({
-                "name": name, "route": "cuda", "source": src, "replaces": rep,
-                "launches": n_launch, "max_abs_err": grp["err"], "ms": ms,
-                "plain_ms": plain_ms, "bound_ms": bound,
-                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-                "library_ms": None})
-            print(f"  {key} {name}: {ms:.4f} ms (plain {plain_ms:.3f} ms), "
-                  f"bound {bound * 1e3:.2f} us ({grp['nbytes'] / 1e6:.1f} MB, "
-                  f"{grp['ops'] / 1e9:.3f} GFLOP), {n_launch} launches on "
-                  f"the path ({note})")
-    return rows
+        ms = cuda_ms(r["fn"], 20)
+        out.append({
+            "name": r["name"], "route": "cuda", "source": r["src"],
+            "replaces": r["rep"], "launches": r["launches"],
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": None})
+        print(f"  {r['key']} {r['name']}: {ms:.4f} ms (plain {plain_ms:.3f} "
+              f"ms), bound {bound * 1e3:.2f} us ({r['nbytes'] / 1e6:.1f} MB, "
+              f"{r['ops'] / 1e9:.3f} GFLOP), {r['launches']} launches on the "
+              f"path ({r['note']})", flush=True)
+    return out
+
+
+STAT_TOOLS = ("powspec", "corr_fct", "2D_powspec", "2D_corr_fct")
+UPSAMPLINGS = ((), ("--fft-upsample", "2"), ("--cic-upsample", "2"))
+# poisson_upres's mean particles per input cell: ~0.8 M particles at 256^3,
+# so its host numpy part takes seconds
+POISSON_NBAR = 0.05
+# density's card-against-CPU check: the particles of the first rows of the
+# session's chain 0, deposited on a DENSITY_N^3 grid (the SPH stencil takes
+# minutes on the CPU at 256^3; the card also deposits all of them at 256^3)
+DENSITY_N = 64
+
+
+def run_tools(argv, out: Path, device: str, text: bool):
+    """`tools.main(argv)` with --out and --device; returns (seconds, output
+    as numpy, its bytes)."""
+    from barcode_tpu_torch.tools.__main__ import main as tools_main
+
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):  # its "wrote ..." line
+        status = tools_main(list(argv) + ["--out", str(out), "--device",
+                                          device])
+    sync(torch.device(device))
+    if status != 0:
+        raise RuntimeError(f"tools {argv[0]} failed")
+    seconds = time.perf_counter() - t0
+    path = Path(str(out) + ".dat")
+    data = np.loadtxt(path) if text else bio.read_array(out)
+    return seconds, data, path.read_bytes()
+
+
+def tool_vs_cpu(label, card, cpu, forward=False):
+    """The card's tool output against the CPU's: rtol 1e-5, atol 1e-6 *
+    max(1, max|ref|) (tests/test_torch_tools.py), or for the forward model
+    1e-4 * max(1, max|ref|) (tests/test_torch_forward.py's anchor; the
+    density contrast rho / mean - 1 carries the errors of rho, whose scale
+    is 1 however small the contrast); raises."""
+    diff = np.abs(card - cpu)
+    scale = max(1.0, np.abs(cpu).max())
+    if forward:
+        ok = bool(diff.max() <= 1e-4 * scale)
+    else:
+        ok = bool((diff <= 1e-5 * np.abs(cpu) + 1e-6 * scale).all())
+    ok = ok and bool(np.isfinite(card).all())
+    print(f"  {label}: card vs CPU max|diff| {diff.max():.3e} (max|ref| "
+          f"{np.abs(cpu).max():.3e}) {'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise RuntimeError(f"{label}: the card disagrees with the CPU")
+    return float(diff.max())
+
+
+def phase_analysis(dev, run_dir: Path, pos, tmp: str):
+    """The 8 offline tools in process (`tools.main`) on the card on the
+    256^3 session's dumps: the four statistics at 200 bins, plain and with
+    each upsampling, each the same bits on 3 calls; plain and FFT-upsampled
+    against --device cpu; CIC-upsampled equal bit for bit to the same
+    statistic of interp_upres's 512^3 file, whose CIC gather is checked
+    against the CPU (the CPU takes about 30 s for each CIC upsampling to
+    512^3); lag2eul on deltaLAG; density on particle files of the session's
+    positions; poisson_upres, its file equal to the CPU's bit for bit.
+    Prints each tool's seconds and the device memory of each bin plan;
+    returns the seconds."""
+    from barcode_tpu_torch import statistics
+
+    n, L = N_BIG, BOX
+    i = max(int(p.stem.split("_")[1]) for p in run_dir.glob("deltaLAG_*"))
+    lag, eul = run_dir / f"deltaLAG_{i}", run_dir / f"deltaEUL_{i}"
+    out = Path(tmp) / "analysis"
+    out.mkdir()
+    print(f"  inputs: {lag.name}, {eul.name} ({n}^3, box {L})")
+    secs = {}
+    argv = ["interp_upres", str(eul), str(n), str(L), str(2 * n)]
+    t, card, _ = run_tools(argv, out / "up_card", dev.type, False)
+    t_cpu, cpu, _ = run_tools(argv, out / "up_cpu", "cpu", False)
+    secs["interp_upres"] = dict(card=[t], cpu=t_cpu)
+    print(f"  interp_upres to {2 * n}^3: card {t:.3f} s, CPU {t_cpu:.2f} s")
+    tool_vs_cpu("interp_upres", card, cpu)
+    for tool in STAT_TOOLS:
+        text = tool in ("powspec", "corr_fct")
+        for up in UPSAMPLINGS:
+            label = f"{tool}{' ' + ' '.join(up) if up else ''}"
+            argv = [tool, str(eul), str(n), str(L), "--nbin", "200", *up]
+            runs = [run_tools(argv, out / f"{tool}{len(up)}_card{k}", dev.type,
+                              text) for k in range(3)]
+            same = all(r[2] == runs[0][2] for r in runs)
+            secs[label] = dict(card=[r[0] for r in runs])
+            print(f"  {label}: card {', '.join(f'{r[0]:.3f}' for r in runs)}"
+                  f" s (first call builds the bin plan); the same bits on 3 "
+                  f"calls {same}", flush=True)
+            if not same:
+                raise RuntimeError(f"{label}: not the same bits on 3 calls")
+            if up and up[0] == "--cic-upsample":
+                # the same statistic of the upsampled file
+                _, _, ref = run_tools(
+                    [tool, str(out / "up_card"), str(2 * n), str(L), "--nbin",
+                     "200"], out / f"{tool}_of_up", dev.type, text)
+                print(f"  {label}: == {tool} of interp_upres's file bit for "
+                      f"bit {runs[0][2] == ref}")
+                if runs[0][2] != ref:
+                    raise RuntimeError(f"{label} differs from {tool} of the "
+                                       "upsampled file")
+                continue
+            t_cpu, cpu, _ = run_tools(argv, out / f"{tool}{len(up)}_cpu",
+                                      "cpu", text)
+            secs[label]["cpu"] = t_cpu
+            print(f"  {label}: CPU {t_cpu:.2f} s")
+            tool_vs_cpu(label, runs[0][1], cpu)
+    key = str(torch.empty(0, device=dev).device)  # the plans' cache key
+    for kind in sorted(statistics._BINS):
+        for g in (GridSpec.cube(n, L), GridSpec.cube(2 * n, L)):
+            plan = statistics.bin_plan(kind, g, 200, key)
+            print(f"  bin plan {kind} {g.N1}^3: {plan.nbytes / 2**20:.1f} MiB "
+                  f"on the device ({len(plan.levels)} levels)")
+    statistics.bin_plan.cache_clear()
+
+    argv = ["lag2eul", str(lag), str(n), str(L)]
+    t, card, _ = run_tools(argv, out / "eul_card", dev.type, False)
+    t_cpu, cpu, _ = run_tools(argv, out / "eul_cpu", "cpu", False)
+    secs["lag2eul"] = dict(card=[t], cpu=t_cpu)
+    print(f"  lag2eul: card {t:.3f} s, CPU {t_cpu:.2f} s")
+    tool_vs_cpu("lag2eul", card, cpu, forward=True)
+
+    # density: chain 0's particles as x/y/z files
+    p0 = pos[0].reshape(3, -1).cpu().numpy()
+    m = DENSITY_N**3
+    for a, axis in enumerate("xyz"):
+        bio.write_array(out / f"parts_{axis}", p0[a])
+        bio.write_array(out / f"few_{axis}", p0[a, :m])
+    t, card, _ = run_tools(["density", str(out / "parts"), str(n), str(L)],
+                           out / "dens_card", dev.type, False)
+    mass = float(card.astype(np.float64).sum() * (L / n) ** 3)
+    print(f"  density of {p0.shape[1]} particles at {n}^3: card {t:.3f} s, "
+          f"mass {mass:.1f} (rtol 0.02)")
+    if abs(mass - p0.shape[1]) > 0.02 * p0.shape[1]:
+        raise RuntimeError("density: the SPH grid lost mass")
+    argv = ["density", str(out / "few"), str(DENSITY_N), str(L)]
+    t_s, card, _ = run_tools(argv, out / "few_card", dev.type, False)
+    t_cpu, cpu, _ = run_tools(argv, out / "few_cpu", "cpu", False)
+    secs["density"] = dict(card=[t, t_s], cpu=t_cpu)
+    print(f"  density of {m} particles at {DENSITY_N}^3: card {t_s:.3f} s, "
+          f"CPU {t_cpu:.2f} s")
+    tool_vs_cpu(f"density ({DENSITY_N}^3)", card, cpu)
+
+    argv = ["poisson_upres", str(eul), str(n), str(L), str(2 * n),
+            str(POISSON_NBAR)]
+    t, _, card = run_tools(argv, out / "pois_card", dev.type, False)
+    t_cpu, _, cpu = run_tools(argv, out / "pois_cpu", "cpu", False)
+    secs["poisson_upres"] = dict(card=[t], cpu=t_cpu)
+    print(f"  poisson_upres to {2 * n}^3, Nbar {POISSON_NBAR}: {t:.2f} s "
+          f"(--device {dev.type}), {t_cpu:.2f} s (--device cpu); the same file "
+          f"bit for bit {card == cpu}")
+    if card != cpu:
+        raise RuntimeError("poisson_upres: the files differ")
+    shutil.rmtree(out)
+    return secs
+
+
+def phase_bf16(dev, inputs, slab, model, tmp: str, f32_sessions: dict):
+    """The bf16 variants of K1-K4 (input.par's pallas_bf16_dep and
+    pallas_bf16_grad) against their bf16 plain versions and themselves: at
+    32^3 with violators (dense and 2 slabs) and at the path shapes (128^3,
+    2 chains; 256^3 one rank for K3/K4); the bf16 deposit and gather the
+    same bits on 3 calls, within 1e-2 * max of float32 and not equal; psi
+    and grad psi with both keys at 128^3, card against CPU; a 256^3
+    command-line session with both keys, dense and --sharded, launch
+    counters checked, steps/s and acceptance beside the float32 session's.
+    Returns the sessions' launches."""
+    g32 = GridSpec.cube(32, 32 * BOX / N_GRID)
+    pos32 = violator_positions(g32, N_CHAINS, 200, dev)
+    gen = torch.Generator(device=dev).manual_seed(43)
+    w32 = torch.rand((N_CHAINS,) + g32.shape, generator=gen, device=dev)
+    cot32 = torch.randn((N_CHAINS,) + g32.shape, generator=gen, device=dev)
+    check_kernels("32^3 violators bf16", g32, pos32, 3, (16, 16), (8, 8), w32,
+                  cot32, bf16=True)
+    for k in range(2):
+        p = pos32[:1, :, k * 16:(k + 1) * 16].contiguous()
+        cot = torch.randn((1, 24, 32, 32), generator=gen, device=dev)
+        check_slab(f"32^3 slab {k} of 2 h=4 bf16", g32, p, 16, k, 4,
+                   w32[:1, k * 16:(k + 1) * 16].contiguous(), cot, bf16=True)
+
+    g, pos, ok, cot = inputs["g"], inputs["pos"], inputs["ok"], inputs["cot"]
+    halo, block, block_dep = inputs["halo"], inputs["block"], inputs["block_dep"]
+    check_kernels(f"{g.N1}^3 headline bf16", g, pos, halo, block_dep, block,
+                  ok, cot, bf16=True)
+    for name, run in (
+            ("K1", lambda b: tk.tsc_deposit_window(pos, g, halo, block_dep,
+                                                   weights=ok, bf16=b)),
+            ("K2", lambda b: tk.tsc_gather_grads_window(cot, pos, g, halo,
+                                                        block, False,
+                                                        bf16=b))):
+        outs = [run(True) for _ in range(3)]
+        f32 = run(False)
+        same = all(torch.equal(o, outs[0]) for o in outs)
+        diff = (outs[0] - f32).abs().max().item()
+        top = f32.abs().max().item()
+        near = 0 < diff <= 1e-2 * top
+        print(f"  {name} bf16 at {g.N1}^3: the same bits on 3 calls {same}; "
+              f"max|bf16 - float32| {diff:.3e} of max {top:.3e} (in (0, "
+              f"1e-2 * max]: {near})")
+        if not (same and near):
+            raise RuntimeError(f"{name} bf16: not deterministic, or not "
+                               "within 1e-2 * max of float32, or equal to it")
+    sg, spos, sok, scot, h = (slab[k] for k in ("g", "pos", "ok", "cot",
+                                                 "halo"))
+    check_slab(f"{sg.N1}^3 one rank weighted bf16", sg, spos, sg.N1, 0, h,
+               sok, scot, bf16=True)
+
+    g, gp, mc, obs, delta = (model[k] for k in ("g", "gp", "mc", "obs",
+                                                 "delta"))
+    mc16 = dataclasses.replace(mc, forward=dataclasses.replace(
+        mc.forward, pallas_bf16_dep=True, pallas_bf16_grad=True))
+    zero_launches()
+    compare_psi(f"{g.N1}^3 psi with both bf16 keys", posterior(g, mc16, gp),
+                delta, obs, g, dev)
+    launches = read_launches()
+    want = dict.fromkeys(KERNEL_LAUNCHERS, 0)
+    if dev.type == "cuda":
+        want.update({"K1 bf16": 1, "K2 bf16": 1})
+    print(f"  launches of one psi + grad with both keys: {launches}")
+    if launches != want:
+        raise RuntimeError(f"bf16 psi launches {launches} != {want}")
+
+    total = {}
+    for sharded in (False, True):
+        report = {}
+        d = Path(tmp) / ("sharded" if sharded else "dense")
+        d.mkdir()
+        total.update({k: v for k, v in phase_cli256(
+            dev, str(d), sharded=sharded, bf16=True, calls=("session",),
+            report=report).items() if v})
+        s16, s32 = report["session"], f32_sessions["sharded" if sharded
+                                                     else "dense"]["session"]
+        mode = "--sharded" if sharded else "dense"
+        print(f"  {N_BIG}^3 {mode} session: bf16 {s16['steps_per_s']:.3f} "
+              f"steps/s, accepted {s16['accepted']} of {s16['attempts']} "
+              f"attempts; float32 {s32['steps_per_s']:.3f} steps/s, accepted "
+              f"{s32['accepted']} of {s32['attempts']}", flush=True)
+    return total
+
+
+GEOMETRIES = (("dense", 0, 0), ("slab", 1, 0), ("dense bf16", 0, 1),
+              ("slab bf16", 1, 1))
 
 
 def phase_build_checks(info):
@@ -1531,7 +1809,8 @@ def phase_build_checks(info):
     shared-memory add compiles to on sm_90a, and the tiled deposit's
     resident blocks per SM (the plan's two, so that the box cap holds); the
     tiled gather's registers and spills (`-Xptxas -v`) and resident blocks
-    per SM (at least the plan's)."""
+    per SM (at least the plan's); each for the dense and slab geometries,
+    float32 and bf16."""
     lib, _ = cuda_build.load()
     sass = cuda_build.sass(info.path, "tsc_deposit_tiled_kernel")
     ops = collections.Counter(tok for line in sass.splitlines()
@@ -1544,8 +1823,9 @@ def phase_build_checks(info):
           f"sm_90a: native {native} (the tiled kernel adds two native 32-bit "
           f"words instead)")
     plan = tk.tiled_plan(N_BIG, N_BIG, N_BIG, N_CHAINS)
-    blocks = {geom: lib.tsc_deposit_tiled_blocks_per_sm(plan.box_cells, slab)
-              for geom, slab in (("dense", 0), ("slab", 1))}
+    blocks = {geom: lib.tsc_deposit_tiled_blocks_per_sm(plan.box_cells, slab,
+                                                        bf16)
+              for geom, slab, bf16 in GEOMETRIES}
     print(f"  tiled kernel: {plan.threads} threads, box {plan.box_cells} "
           f"cells ({plan.smem_bytes} B), resident blocks per SM {blocks} "
           f"(planned {plan.blocks_per_sm})")
@@ -1558,17 +1838,21 @@ def phase_build_checks(info):
     gplan = tk.gather_plan(N_BIG, N_BIG, N_BIG, N_CHAINS)
     regs = {name: v for name, v in cuda_build.ptxas_functions(
         info.ptxas).items() if "tsc_gather_tiled_kernel" in name}
-    gblocks = {geom: lib.tsc_gather_tiled_blocks_per_sm(gplan.box_cells, slab)
-               for geom, slab in (("dense", 0), ("slab", 1))}
+    gblocks = {geom: lib.tsc_gather_tiled_blocks_per_sm(gplan.box_cells, slab,
+                                                        bf16)
+               for geom, slab, bf16 in GEOMETRIES}
     for name, v in regs.items():
-        geom = "slab" if "SlabX" in name else "dense"
+        # the kernel's template arguments: <XRule, BF16>, BF16 = true is
+        # mangled Lb1E
+        geom = ("slab" if "SlabX" in name else "dense") + \
+            (" bf16" if "Lb1E" in name else "")
         print(f"  tiled gather ({geom}): {v['registers']} registers, "
               f"{v['stack']} bytes stack frame, {v['spill_stores']} bytes "
               f"spill stores, {v['spill_loads']} bytes spill loads")
     print(f"  tiled gather: {gplan.threads} threads, box {gplan.box_cells} "
           f"cells, {gplan.smem_bytes} B of shared memory, resident blocks per "
           f"SM {gblocks} (planned {gplan.blocks_per_sm})")
-    if len(regs) != 2 or any(v["spill_stores"] or v["spill_loads"]
+    if len(regs) != 4 or any(v["spill_stores"] or v["spill_loads"]
                              for v in regs.values()):
         raise RuntimeError(f"the tiled gather spills: {regs}")
     if any(n < gplan.blocks_per_sm for n in gblocks.values()):
@@ -1695,6 +1979,8 @@ def main(argv=None):
 
         clock.start("psi")
         phase_psi(runner, delta)
+        model = dict(g=runner.g, gp=runner.gp, mc=runner.conf.model,
+                     obs=runner.obs, delta=delta)
         runner.close()
         del runner
         clock.done()
@@ -1749,19 +2035,33 @@ def main(argv=None):
 
         clock.start("cli256")
         tmp_dirs.append(tempfile.mkdtemp(prefix="chip_smoke_"))
-        path256 = {}
-        launches256 = phase_cli256(dev, tmp_dirs[-1], keep=path256)
+        path256, f32_sessions = {}, {"dense": {}, "sharded": {}}
+        launches256 = phase_cli256(dev, tmp_dirs[-1], keep=path256,
+                                   report=f32_sessions["dense"])
         clock.done()
 
         clock.start("sharded_cli256")
         tmp_dirs.append(tempfile.mkdtemp(prefix="chip_smoke_"))
-        launches_sh = phase_cli256(dev, tmp_dirs[-1], sharded=True)
+        launches_sh = phase_cli256(dev, tmp_dirs[-1], sharded=True,
+                                   report=f32_sessions["sharded"])
+        clock.done()
+
+        clock.start("analysis")
+        tmp_dirs.append(tempfile.mkdtemp(prefix="chip_smoke_"))
+        phase_analysis(dev, path256["out"], path256["pos"], tmp_dirs[-1])
+        clock.done()
+
+        clock.start("bf16")
+        tmp_dirs.append(tempfile.mkdtemp(prefix="chip_smoke_"))
+        launches_bf16 = phase_bf16(dev, inputs, slab, model, tmp_dirs[-1],
+                                   f32_sessions)
+        del model
         clock.done()
 
         clock.start("timing")
         rows = phase_timing(inputs, errs, launches, per_attempt, inputs256,
                             errs256, launches256, path256, slab, slab_errs,
-                            launches_sh)
+                            launches_sh, launches_bf16)
         clock.done()
 
         print(smi)

@@ -10,12 +10,12 @@ Kernel tolerances: 2e-6 * max(1, max|ref|) — K1/K2 sum their taps in
 another order than the plain versions (K1 exactly, in 64-bit fixed point;
 the plain versions in float32); the window decisions are integer
 arithmetic and must agree exactly.  Gradients through the deposit:
-3e-5 * max|grad|.  The tiled deposit (csrc/tsc_deposit_tiled.cu) and the
-witnesses it replaced on every path (`impl="push"`, `impl="pull"`) sum the
-same integers, and the tiled gather (csrc/tsc_gather_tiled.cu) and its
-witnesses (`impl="thread"`) compile the same per-particle arithmetic, so
-they are held equal bit for bit (`torch.equal`; NaN where the witness has
-NaN).
+3e-5 * max|grad|.  The tiled deposit (csrc/tsc_deposit_tiled.cu) sums in
+64-bit fixed point and the tiled gather (csrc/tsc_gather_tiled.cu) writes
+each output from one thread, so each is held equal bit for bit to its own
+earlier call on the same inputs (`torch.equal`; NaN where the other has
+NaN).  The bf16 variants (`bf16=True`) are held to the same anchors
+against their bf16 plain versions: their products are exact in float32.
 """
 import numpy as np
 import pytest
@@ -125,8 +125,7 @@ def test_cuda_deposit_function_matches_cpu(cuda, tail_k):
 @pytest.mark.gpu
 @pytest.mark.parametrize("scale", [1e-7, 1.0, 3e5, 1e16])
 def test_cuda_deposit_is_deterministic_at_any_weight_scale(cuda, scale):
-    """Fixed-point accumulation: bit-identical repeats, equal to the push
-    witness, signed weights of any magnitude within tolerance (1e16 makes
+    """Fixed-point accumulation: bit-identical repeats, signed weights of any magnitude within tolerance (1e16 makes
     the fixed-point scale 2^e < 1, the tiled kernel's float64 rounding
     path), and NaN for a chain with a non-finite particle (as the float sum
     would make its psi)."""
@@ -135,8 +134,6 @@ def test_cuda_deposit_is_deterministic_at_any_weight_scale(cuda, scale):
     a = tk.tsc_deposit_window(pos, G, 3, (16, 16), weights=w)
     b = tk.tsc_deposit_window(pos, G, 3, (16, 16), weights=w)
     assert torch.equal(a, b)
-    assert torch.equal(a, tk.tsc_deposit_window(pos, G, 3, (16, 16),
-                                                weights=w, impl="push"))
     ref = tk.tsc_deposit_window_plain(pos, G, 3, (16, 16), weights=w)
     assert (a - ref).abs().max() <= 2e-6 * ref.abs().max()
     w[1, 3, 4, 5] = float("nan")
@@ -165,47 +162,44 @@ STREAM_CASES = {
 @pytest.mark.parametrize("case", sorted(STREAM_CASES))
 def test_cuda_stream_deposit_is_k1(cuda, case, weighted):
     """The tiled K1, which serves stream=True and stream=False alike, within
-    2e-6 * max of the plain version, equal bit for bit to the push witness
-    (the earlier K1) and the pull witness (the earlier K1s, the TPU's
-    streamed body), and bit-identical from call to call."""
+    2e-6 * max of the plain version and bit-identical from call to call
+    (as it was to the earlier K1 and K1s kernels, which it replaced)."""
     g, halo, block, n_viol = STREAM_CASES[case]
     pos = positions(7, n_viol, g=g).to(cuda)
     w = torch.rand((2,) + g.shape, device=cuda) if weighted else None
     n0 = launch_counts()
     out = tk.tsc_deposit_window(pos, g, halo, block, weights=w, stream=True)
     again = tk.tsc_deposit_window(pos, g, halo, block, weights=w, stream=False)
-    push = tk.tsc_deposit_window(pos, g, halo, block, weights=w, impl="push")
-    pull = tk.tsc_deposit_window(pos, g, halo, block, weights=w, impl="pull")
     torch.cuda.synchronize()
-    assert launch_counts() == {k: n0[k] + d for k, d in
-                               (("tiled", 2), ("push", 1), ("pull", 1))}
+    assert launch_counts() == dict(n0, tiled=n0["tiled"] + 2)
     assert torch.equal(out, again)
-    assert torch.equal(out, push) and torch.equal(out, pull)
     assert_close(out, tk.tsc_deposit_window_plain(pos, g, halo, block,
                                                   weights=w))
 
 
 def launch_counts():
-    """The launch counters of the tiled K1 and of its two witnesses."""
+    """The launch counters of K1, float32 and bf16."""
     return {"tiled": tk.tsc_deposit_window.launches,
-            "push": tk.tsc_deposit_window_push.launches,
-            "pull": tk.tsc_deposit_window_stream.launches}
+            "bf16": tk.tsc_deposit_window.launches_bf16}
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("impl", ["tiled", "push", "pull"])
-def test_cuda_stream_deposit_marks_a_bad_chain(cuda, impl):
-    """A chain with a non-finite weight or position reads NaN in the tiled
-    kernel as in both witnesses; the other chain keeps its bits."""
+@pytest.mark.parametrize("bf16", [False, True])
+def test_cuda_stream_deposit_marks_a_bad_chain(cuda, bf16):
+    """A chain with a non-finite weight or position reads NaN; the other
+    chain keeps the bits it has where the bad weight is 0 instead (the
+    same fixed-point scale)."""
     pos = positions(8, 50).to(cuda)
     w = torch.rand((2,) + G.shape, device=cuda)
+    ok = w.clone()
+    ok[0, 5, 6, 7] = 0.0
     w[0, 5, 6, 7] = float("inf")
-    out = tk.tsc_deposit_window(pos, G, 3, (16, 16), weights=w, impl=impl)
+    out = tk.tsc_deposit_window(pos, G, 3, (16, 16), weights=w, bf16=bf16)
     assert torch.isnan(out[0]).all()
     assert torch.equal(out[1], tk.tsc_deposit_window(
-        pos, G, 3, (16, 16), weights=w, impl="push")[1])
+        pos, G, 3, (16, 16), weights=ok, bf16=bf16)[1])
     pos[1, 2, 3, 4, 5] = float("nan")
-    out = tk.tsc_deposit_window(pos, G, 3, (16, 16), impl=impl)
+    out = tk.tsc_deposit_window(pos, G, 3, (16, 16), bf16=bf16)
     assert torch.isnan(out[1]).all() and not torch.isnan(out[0]).any()
 
 
@@ -252,14 +246,14 @@ TILED_CASES = {
 @pytest.mark.gpu
 @pytest.mark.parametrize("weighted", [False, True])
 @pytest.mark.parametrize("case", sorted(TILED_CASES))
-def test_cuda_tiled_deposit_equals_witnesses(cuda, case, weighted):
+def test_cuda_tiled_deposit_on_hard_inputs(cuda, case, weighted):
     """The tiled K1 on inputs that strain its design — a chain collapsed
     into a few cells (hot cells, boxes at their cap) and particles flung
-    half a box away (taps outside every box) — equal to both witnesses bit
-    for bit and to itself from call to call.  The plain version is the
-    yardstick only where no cell sums thousands of taps: there its float32
-    sums drift beyond 2e-6 * max (measured on the H100), while the three
-    kernels' 64-bit integer sums are exact."""
+    half a box away (taps outside every box) — equal to itself bit for bit
+    from call to call.  The plain version is the yardstick only where no
+    cell sums thousands of taps: there its float32 sums drift beyond 2e-6 *
+    max (measured on the H100), while the kernel's 64-bit integer sums are
+    exact."""
     g, halo, block, n_viol, how = TILED_CASES[case]
     pos = positions(11, n_viol, g=g).to(cuda)
     if how == "collapsed":
@@ -271,8 +265,8 @@ def test_cuda_tiled_deposit_equals_witnesses(cuda, case, weighted):
         hx, hy = tk._halo_pair(halo)
         w = (assign._halo_excess(pos, g, hx, hy) <= 0.0).float() * \
             (0.5 + torch.rand((2,) + g.shape, device=cuda))
-    outs = [tk.tsc_deposit_window(pos, g, halo, block, weights=w, impl=impl)
-            for impl in ("tiled", "tiled", "push", "pull")]
+    outs = [tk.tsc_deposit_window(pos, g, halo, block, weights=w)
+            for _ in range(3)]
     torch.cuda.synchronize()
     assert all(torch.equal(outs[0], o) for o in outs[1:])
     if how != "collapsed":
@@ -300,9 +294,7 @@ def assert_same_bits(a, b):
 
 def gather_counts():
     return {"tiled": tk.tsc_gather_grads_window.launches,
-            "thread": tk.tsc_gather_grads_window_thread.launches,
-            "slab": tk.tsc_gather_grads_slab.launches,
-            "slab thread": tk.tsc_gather_grads_slab_thread.launches}
+            "slab": tk.tsc_gather_grads_slab.launches}
 
 
 G48 = GridSpec.cube(48, 75.0)
@@ -325,14 +317,15 @@ GATHER_CASES = {
 @pytest.mark.gpu
 @pytest.mark.parametrize("want_value", [False, True])
 @pytest.mark.parametrize("case", sorted(GATHER_CASES))
-def test_cuda_tiled_gather_equals_witness(cuda, case, want_value):
+def test_cuda_tiled_gather_on_hard_inputs(cuda, case, want_value):
     """K2 through the tiled gather, on inputs that strain its design — a
     collapsed chain (boxes at their cap), particles flung half a box away
     and non-finite or huge positions (stencils outside every box), a
     block that is not a power of two over ragged tiles, and the 4-byte
     copies of a grid ragged in z or an unaligned field — equal bit for bit
-    to the thread witness (the earlier K2) and to itself from call to
-    call."""
+    to itself from call to call, and within 3e-5 * max of the plain
+    version wherever the positions are finite and near the box (the plain
+    version's integer casts are undefined for huge ones)."""
     g, halo, block, n_viol, how = GATHER_CASES[case]
     pos = positions(12, n_viol, g=g).to(cuda)
     if how == "collapsed":
@@ -346,18 +339,16 @@ def test_cuda_tiled_gather_equals_witness(cuda, case, want_value):
     field = field[1:] if how == "unaligned" else field[:-1]
     field = field.view((2,) + g.shape)
     n0 = gather_counts()
-    outs = [tk.tsc_gather_grads_window(field, pos, g, halo, block, want_value,
-                                       impl=impl)
-            for impl in ("tiled", "tiled", "thread")]
+    outs = [tk.tsc_gather_grads_window(field, pos, g, halo, block, want_value)
+            for _ in range(3)]
     torch.cuda.synchronize()
-    assert gather_counts() == dict(n0, tiled=n0["tiled"] + 2,
-                                   thread=n0["thread"] + 1)
+    assert gather_counts() == dict(n0, tiled=n0["tiled"] + 3)
     assert_same_bits(outs[0], outs[1])
     assert_same_bits(outs[0], outs[2])
-    if how in (None, "unaligned"):
+    if how != "bad":
         assert (outs[0] - tk.tsc_gather_grads_window_plain(
             field, pos, g, halo, block, want_value)).abs().max().item() <= \
-            3e-5 * max(1.0, outs[2].abs().max().item())
+            3e-5 * max(1.0, outs[0].abs().max().item())
 
 
 @pytest.mark.gpu
@@ -421,8 +412,7 @@ SLAB_CASES = {
 def test_cuda_slab_kernels_match_plain(cuda, case, weighted):
     """K3 and K4 (with and without the value) on every slab of 32^3 with
     contract violators against their plain versions; K3 (the tiled kernel)
-    bit-identical from call to call and to its push witness (the earlier
-    K3)."""
+    bit-identical from call to call."""
     D, h = SLAB_CASES[case]
     n1 = G.N1 // D
     pos = positions(7, 200).to(cuda)
@@ -431,14 +421,11 @@ def test_cuda_slab_kernels_match_plain(cuda, case, weighted):
         w = torch.rand((2, n1) + G.shape[1:], device=cuda) \
             if weighted else None
         n3, n4 = tk.tsc_deposit_slab.launches, tk.tsc_gather_grads_slab.launches
-        n3w = tk.tsc_deposit_slab_push.launches
         out = tk.tsc_deposit_slab(p, G, n1, k, h, weights=w)
         again = tk.tsc_deposit_slab(p, G, n1, k, h, weights=w)
-        push = tk.tsc_deposit_slab(p, G, n1, k, h, weights=w, impl="push")
         torch.cuda.synchronize()
         assert tk.tsc_deposit_slab.launches == n3 + 2
-        assert tk.tsc_deposit_slab_push.launches == n3w + 1
-        assert torch.equal(out, again) and torch.equal(out, push)
+        assert torch.equal(out, again)
         assert_close(out, tk.tsc_deposit_slab_plain(p, G, n1, k, h, weights=w))
         field = torch.randn(out.shape, device=cuda)
         for want_value in (False, True):
@@ -467,11 +454,12 @@ def slab_edges(pos, g, n1, dev, h):
 @pytest.mark.parametrize("want_value", [False, True])
 @pytest.mark.parametrize("how", [None, "edges", "bad"])
 @pytest.mark.parametrize("case", sorted(SLAB_CASES))
-def test_cuda_tiled_slab_gather_equals_witness(cuda, case, how, want_value):
+def test_cuda_tiled_slab_gather_on_hard_inputs(cuda, case, how, want_value):
     """K4 through the tiled gather on every slab of 32^3 with contract
     violators, with the slab's edge rows pushed into the extended buffer's
     first and last rows, and with non-finite or huge positions: equal bit
-    for bit to the thread witness (the earlier K4) and to itself."""
+    for bit to itself, and within 3e-5 * max of the plain version where the
+    positions are finite."""
     D, h = SLAB_CASES[case]
     n1 = G.N1 // D
     pos = positions(13, 200).to(cuda)
@@ -486,14 +474,17 @@ def test_cuda_tiled_slab_gather_equals_witness(cuda, case, how, want_value):
                             generator=gen)
         n0 = gather_counts()
         outs = [tk.tsc_gather_grads_slab(field, p, G, n1, k, h,
-                                         want_value=want_value, impl=impl)
-                for impl in ("tiled", "tiled", "thread")]
+                                         want_value=want_value)
+                for _ in range(3)]
         torch.cuda.synchronize()
-        assert gather_counts() == dict(n0, slab=n0["slab"] + 2,
-                                       **{"slab thread": n0["slab thread"]
-                                          + 1})
+        assert gather_counts() == dict(n0, slab=n0["slab"] + 3)
         assert_same_bits(outs[0], outs[1])
         assert_same_bits(outs[0], outs[2])
+        if how != "bad":
+            ref = tk.tsc_gather_grads_slab_plain(field, p, G, n1, k, h,
+                                                 want_value=want_value)
+            assert (outs[0] - ref).abs().max().item() <= \
+                3e-5 * max(1.0, ref.abs().max().item())
 
 
 @pytest.mark.gpu
@@ -529,7 +520,7 @@ def test_cuda_wrappers_raise_on_bad_tensors(cuda):
 def test_cuda_runner_goes_through_the_kernels(cuda, tmp_path):
     """A 16^3 headline-config session on the card launches K1 and K2 once
     per gradient (init + N_eps_fac per attempt), K1 also once per dumped
-    deltaEUL/deltaRSS field, no witness, and stays finite."""
+    deltaEUL/deltaRSS field, no bf16 variant, and stays finite."""
     g = GridSpec.cube(16, 25.0)
     fc = ForwardConfig(sfmodel=3, masskernel="sph_ft", rsd=True,
                        pallas_deposit=True, pallas_halo=0, pallas_tail_k=1024)
@@ -537,12 +528,10 @@ def test_cuda_runner_goes_through_the_kernels(cuda, tmp_path):
                      hmc=HMCConfig(eps_fac=1e-3, eps_fac_update_type=0,
                                    N_eps_fac=4, N_a_eps_update=8),
                      readPS=False)
-    tk.tsc_deposit_window.launches = tk.tsc_gather_grads_window.launches = 0
-    witnesses = (tk.tsc_deposit_window_push, tk.tsc_deposit_window_stream,
-                 tk.tsc_deposit_slab_push, tk.tsc_gather_grads_window_thread,
-                 tk.tsc_gather_grads_slab_thread)
-    for f in witnesses:
-        f.launches = 0
+    kernels = (tk.tsc_deposit_window, tk.tsc_gather_grads_window,
+               tk.tsc_deposit_slab, tk.tsc_gather_grads_slab)
+    for f in kernels:
+        f.launches = f.launches_bf16 = 0
     r = Runner(conf, out_dir=str(tmp_path), device=cuda)
     r.attempt_batch = 2
     r.setup(n_chains=2)
@@ -555,7 +544,9 @@ def test_cuda_runner_goes_through_the_kernels(cuda, tmp_path):
         {f"deltaRSS_{i}.dat" for i in range(1, n_dumps + 1)}
     assert tk.tsc_deposit_window.launches == expected + 2 * n_dumps
     assert tk.tsc_gather_grads_window.launches == expected
-    assert all(f.launches == 0 for f in witnesses)
+    assert all(f.launches_bf16 == 0 for f in kernels)
+    assert tk.tsc_deposit_slab.launches == tk.tsc_gather_grads_slab.launches \
+        == 0
     assert torch.isfinite(states.psi).all()
 
 
@@ -703,3 +694,101 @@ def test_plain_deposit_conserves_mass_inside_the_contract():
                                rtol=1e-5, atol=0)
     torch.testing.assert_close(rho, assign.tsc_deposit(pos, G, w),
                                atol=2e-6, rtol=0)
+
+
+BF16_CASES = {
+    # (grid, halo, deposit block, gather block, violators)
+    "violators_32": (G, 3, (16, 16), (8, 8), 200),
+    "halo_pair_32": (G, (3, 2), (16, 8), (8, 16), 150),
+    "headline_128": (G128, 6, (16, 16), (8, 8), 0),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("weighted", [False, True])
+@pytest.mark.parametrize("case", sorted(BF16_CASES))
+def test_cuda_bf16_kernels_match_plain(cuda, case, weighted):
+    """K1 and K2 with bf16 against their bf16 plain versions (2e-6 and 3e-5
+    * max(1, max|ref|)), each bit-identical from call to call and counted
+    on its bf16 counter only; bf16 differs from float32 within 1e-2 *
+    max."""
+    g, halo, block_dep, block, n_viol = BF16_CASES[case]
+    pos = positions(21, n_viol, g=g).to(cuda)
+    w = torch.rand((2,) + g.shape, device=cuda) if weighted else None
+    field = torch.randn((2,) + g.shape, device=cuda)
+    kernels = (tk.tsc_deposit_window, tk.tsc_gather_grads_window)
+    n0 = [(f.launches, f.launches_bf16) for f in kernels]
+    dep = [tk.tsc_deposit_window(pos, g, halo, block_dep, weights=w,
+                                 bf16=True) for _ in range(3)]
+    gat = [tk.tsc_gather_grads_window(field, pos, g, halo, block, False,
+                                      bf16=True) for _ in range(3)]
+    torch.cuda.synchronize()
+    assert [(f.launches, f.launches_bf16) for f in kernels] == \
+        [(a, b + 3) for a, b in n0]
+    assert torch.equal(dep[0], dep[1]) and torch.equal(dep[0], dep[2])
+    assert torch.equal(gat[0], gat[1]) and torch.equal(gat[0], gat[2])
+    assert_close(dep[0], tk.tsc_deposit_window_plain(
+        pos, g, halo, block_dep, weights=w, bf16=True))
+    assert_close(gat[0], tk.tsc_gather_grads_window_plain(
+        field, pos, g, halo, block, False, bf16=True), rel=3e-5)
+    for bf, f32 in ((dep[0], tk.tsc_deposit_window(pos, g, halo, block_dep,
+                                                   weights=w)),
+                    (gat[0], tk.tsc_gather_grads_window(field, pos, g, halo,
+                                                        block, False))):
+        diff = (bf - f32).abs().max().item()
+        assert 0 < diff <= 1e-2 * f32.abs().max().item()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("weighted", [False, True])
+@pytest.mark.parametrize("case", sorted(SLAB_CASES))
+def test_cuda_bf16_slab_kernels_match_plain(cuda, case, weighted):
+    """K3 and K4 with bf16 on every slab of 32^3 with contract violators
+    against their bf16 plain versions, bit-identical from call to call."""
+    D, h = SLAB_CASES[case]
+    n1 = G.N1 // D
+    pos = positions(22, 200).to(cuda)
+    for k in range(D):
+        p = pos[:, :, k * n1:(k + 1) * n1].contiguous()
+        w = torch.rand((2, n1) + G.shape[1:], device=cuda) \
+            if weighted else None
+        n3 = tk.tsc_deposit_slab.launches_bf16
+        out = tk.tsc_deposit_slab(p, G, n1, k, h, weights=w, bf16=True)
+        again = tk.tsc_deposit_slab(p, G, n1, k, h, weights=w, bf16=True)
+        torch.cuda.synchronize()
+        assert tk.tsc_deposit_slab.launches_bf16 == n3 + 2
+        assert torch.equal(out, again)
+        assert_close(out, tk.tsc_deposit_slab_plain(p, G, n1, k, h,
+                                                    weights=w, bf16=True))
+        field = torch.randn(out.shape, device=cuda)
+        for want_value in (False, True):
+            o = tk.tsc_gather_grads_slab(field, p, G, n1, k, h,
+                                         want_value=want_value, bf16=True)
+            assert torch.equal(o, tk.tsc_gather_grads_slab(
+                field, p, G, n1, k, h, want_value=want_value, bf16=True))
+            assert_close(o, tk.tsc_gather_grads_slab_plain(
+                field, p, G, n1, k, h, want_value=want_value, bf16=True),
+                rel=3e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fn", ["measure_correlation", "measure_spectrum_2d",
+                                "measure_correlation_2d"])
+def test_cuda_statistics_are_deterministic(cuda, fn):
+    """Each statistic at 128^3 with 200 bins gives the same bits on 3 calls
+    on the card (every bin summed in a fixed order), and agrees with the
+    CPU: nmode exactly, the means within rtol 1e-5, atol 1e-6 * max."""
+    from barcode_tpu_torch import statistics
+
+    g = GridSpec.cube(128, 200.0)
+    x = torch.randn(g.shape, device=cuda,
+                    generator=torch.Generator(device=cuda).manual_seed(3))
+    f = getattr(statistics, fn)
+    outs = [f(x, g, 200) for _ in range(3)]
+    for u, v, w in zip(*outs):
+        assert torch.equal(u, v) and torch.equal(u, w)
+    for u, v in zip(outs[0], f(x.cpu(), g, 200)):
+        torch.testing.assert_close(
+            u.cpu(), v, rtol=1e-5, atol=1e-6 * max(1.0, v.abs().max().item()))
+    np.testing.assert_array_equal(outs[0][2].cpu().numpy(),
+                                  f(x.cpu(), g, 200)[2].numpy())

@@ -3,11 +3,11 @@ and the build report it is checked by.
 
 The kernel itself (csrc/tsc_gather_tiled.cu) runs only on the card, where
 tests/test_torch_cuda.py (marked `gpu`) and chip_smoke.py hold it against
-the plain versions and, bit for bit, against its thread witnesses
-(csrc/tsc_gather.cu, csrc/tsc_gather_slab.cu).  Here both gathers must
-take their plain versions for every `impl` and count no launch; the plain
-versions themselves are held against the Pallas kernels by
-tests/test_torch_tsc_kernels.py and test_torch_slab_kernels.py.
+the plain versions and against its own earlier calls bit for bit.  Here
+both gathers must take their plain versions for every `bf16` and count no
+launch; the plain versions themselves are held against the Pallas kernels
+by tests/test_torch_tsc_kernels.py, test_torch_slab_kernels.py and
+test_torch_bf16.py.
 """
 import re
 
@@ -20,12 +20,12 @@ from barcode_tpu_torch.forward import tsc_kernels as tk
 from barcode_tpu_torch.grid.spec import GridSpec
 
 G = GridSpec.cube(16, 25.0)
-GATHERS = (tk.tsc_gather_grads_window, tk.tsc_gather_grads_window_thread,
-           tk.tsc_gather_grads_slab, tk.tsc_gather_grads_slab_thread)
+GATHERS = (tk.tsc_gather_grads_window, tk.tsc_gather_grads_slab)
 
 
 def launch_counts():
-    return {f.__name__: f.launches for f in GATHERS}
+    return {(f.__name__, attr): getattr(f, attr) for f in GATHERS
+            for attr in ("launches", "launches_bf16")}
 
 
 def positions(g, seed, chains=2, jitter=1.5):
@@ -83,12 +83,12 @@ def test_gather_plan_mirrors_the_kernel_source():
                                        tk.GATHER_BLOCKS)
     assert "tsc_gather_tiled.cu" in cuda_build.SOURCES
     assert "tsc_tiled.cuh" in cuda_build.HEADERS
-    assert len(cuda_build.SIGNATURES["tsc_gather_tiled_launch"]) == 21
+    assert len(cuda_build.SIGNATURES["tsc_gather_tiled_launch"]) == 22
 
 
-@pytest.mark.parametrize("impl", ["tiled", "thread"])
-def test_cpu_gathers_are_plain_for_every_impl(impl):
-    """On the CPU, K2 and K4 are their plain versions for every `impl`,
+@pytest.mark.parametrize("bf16", [False, True])
+def test_cpu_gathers_are_plain_for_every_choice(bf16):
+    """On the CPU, K2 and K4 are their plain versions for every `bf16`,
     with and without the value, and no counter moves."""
     gen = torch.Generator().manual_seed(7)
     pos = positions(G, 1)
@@ -98,27 +98,16 @@ def test_cpu_gathers_are_plain_for_every_impl(impl):
     for want_value in (False, True):
         assert torch.equal(
             tk.tsc_gather_grads_window(field, pos, G, 3, (8, 8), want_value,
-                                       impl=impl),
+                                       bf16=bf16),
             tk.tsc_gather_grads_window_plain(field, pos, G, 3, (8, 8),
-                                             want_value))
+                                             want_value, bf16))
         p = pos[:, :, 8:].contiguous()
         assert torch.equal(
             tk.tsc_gather_grads_slab(ext, p, G, 8, 1, 4, (8, 8), want_value,
-                                     impl=impl),
+                                     bf16=bf16),
             tk.tsc_gather_grads_slab_plain(ext, p, G, 8, 1, 4, (8, 8),
-                                           want_value))
+                                           want_value, bf16))
     assert launch_counts() == n0
-
-
-def test_unknown_gather_impl_raises():
-    pos = positions(G, 2)
-    with pytest.raises(ValueError, match="impl"):
-        tk.tsc_gather_grads_window(torch.zeros((2,) + G.shape), pos, G, 3,
-                                   (8, 8), impl="push")
-    with pytest.raises(ValueError, match="impl"):
-        tk.tsc_gather_grads_slab(torch.zeros((2, 16, 16, 16)),
-                                 pos[:, :, :8].contiguous(), G, 8, 0, 4,
-                                 impl="pull")
 
 
 def test_taps_outside_box_are_counted_on_the_card_only():

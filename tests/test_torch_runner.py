@@ -130,9 +130,14 @@ def test_input_par_parses_like_the_jax_package(tmp_path):
     assert jd == d
     assert conf.model.forward.pallas_block_dep == (16, 16)
     assert conf.growth() == GrowthParams(**dataclasses.asdict(jconf.growth()))
-    path.write_text(INPUT_PAR + "pallas_bf16_grad = true\n")
-    with pytest.raises(NotImplementedError):
-        RunConfig.from_input_par(path)
+    # the bf16 kernel keys parse and carry across as the JAX package's
+    path.write_text(INPUT_PAR + "pallas_bf16_grad = true\n"
+                    "pallas_bf16_dep = true\n")
+    jconf, conf = JRunConfig.from_input_par(path), RunConfig.from_input_par(path)
+    assert dataclasses.asdict(conf.model.forward) == dataclasses.asdict(
+        jconf.model.forward)
+    assert conf.model.forward.pallas_bf16_grad
+    assert conf.model.forward.pallas_bf16_dep
 
 
 def test_convert_carries_jax_state_across():
@@ -163,8 +168,11 @@ def test_convert_carries_jax_state_across():
     fc = convert.forward_config(dict(dataclasses.asdict(
         ForwardConfig(pallas_halo=5)), pallas_bf16_grad=False))
     assert fc.pallas_halo == 5
-    with pytest.raises(ValueError):
-        convert.forward_config({"pallas_bf16_dep": True})
+    fc = convert.forward_config({"pallas_bf16_dep": True,
+                                 "pallas_bf16_grad": True})
+    assert fc.pallas_bf16_dep and fc.pallas_bf16_grad
+    with pytest.raises(TypeError):
+        convert.forward_config({"no_such_option": True})
 
 
 def jio_grid():

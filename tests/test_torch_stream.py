@@ -100,7 +100,7 @@ def test_stream_deposit_matches_pallas_stream(case, weighted):
         interpret=True, stream=True,
         weights=None if w is None else jnp.asarray(w[i])))
         for i in range(2)])
-    n0 = (tk.tsc_deposit_window.launches, tk.tsc_deposit_window_stream.launches)
+    n0 = (tk.tsc_deposit_window.launches, tk.tsc_deposit_window.launches_bf16)
     out = tk.tsc_deposit_window(torch.from_numpy(pos), g, c["halo"], (16, 16),
                                 weights=None if w is None
                                 else torch.from_numpy(w), stream=True)
@@ -111,18 +111,4 @@ def test_stream_deposit_matches_pallas_stream(case, weighted):
                                  else torch.from_numpy(w), stream=False)
     assert torch.equal(out, same)
     assert n0 == (tk.tsc_deposit_window.launches,
-                  tk.tsc_deposit_window_stream.launches)
-
-
-def test_stream_tiles_fit_shared_memory_and_one_cluster():
-    """K1s's int64 tile stays within 128 KB of shared memory for the port's
-    blocks, and the z tiles of one column fit one cluster (at most 8)."""
-    for n in (16, 24, 32, 128, 256, 512):
-        g = GridSpec.cube(n, 200.0)
-        for block in ((8, 8), (16, 8), (16, 16)):
-            tz = tk.stream_tile_z(g, block)
-            assert 1 <= tz <= n and block[0] * block[1] * tz * 8 <= 128 << 10
-            assert -(-n // tz) <= tk.STREAM_CLUSTER_MAX
-    assert tk.stream_tile_z(GridSpec.cube(256, 200.0), (16, 16)) == 32
-    with pytest.raises(ValueError):
-        tk.stream_tile_z(GridSpec.cube(1024, 200.0), (16, 16))
+                  tk.tsc_deposit_window.launches_bf16)

@@ -1,13 +1,13 @@
 """The tiled deposit's host side: its launch plan, its routing on the CPU,
-and the fixed-point scale it shares with the witnesses.
+and its fixed-point scale.
 
 The kernel itself (csrc/tsc_deposit_tiled.cu) runs only on the card, where
 tests/test_torch_cuda.py (marked `gpu`) and chip_smoke.py hold it against
-the plain versions and, bit for bit, against the witnesses.  Here every
-wrapper must take its plain version, whatever `stream` and `impl` say, and
-count no launch; the plain versions themselves are held against the Pallas
-kernels by tests/test_torch_tsc_kernels.py, test_torch_stream.py and
-test_torch_slab_kernels.py.
+the plain versions and against its own earlier calls bit for bit.  Here
+every wrapper must take its plain version, whatever `stream` and `bf16`
+say, and count no launch; the plain versions themselves are held against
+the Pallas kernels by tests/test_torch_tsc_kernels.py,
+test_torch_stream.py, test_torch_slab_kernels.py and test_torch_bf16.py.
 """
 import re
 
@@ -23,11 +23,10 @@ G = GridSpec.cube(16, 25.0)
 
 
 def launch_counts():
-    return {f.__name__: f.launches for f in (
-        tk.tsc_deposit_window, tk.tsc_deposit_window_push,
-        tk.tsc_deposit_window_stream, tk.tsc_deposit_slab,
-        tk.tsc_deposit_slab_push, tk.tsc_gather_grads_window,
-        tk.tsc_gather_grads_slab)}
+    return {(f.__name__, attr): getattr(f, attr) for f in (
+        tk.tsc_deposit_window, tk.tsc_deposit_slab,
+        tk.tsc_gather_grads_window, tk.tsc_gather_grads_slab)
+        for attr in ("launches", "launches_bf16")}
 
 
 def positions(g, seed, chains=2, jitter=1.5):
@@ -76,44 +75,35 @@ def test_tiled_plan_mirrors_the_kernel_source():
         r"constexpr int TX = (\d+), TY = (\d+), TZ = (\d+);", src).groups())
     assert (threads, tile) == (tk.TILED_THREADS, tk.TILED_TILE)
     assert "tsc_deposit_tiled.cu" in cuda_build.SOURCES
-    assert len(cuda_build.SIGNATURES["tsc_deposit_tiled_launch"]) == 22
+    assert len(cuda_build.SIGNATURES["tsc_deposit_tiled_launch"]) == 23
 
 
-@pytest.mark.parametrize("impl", ["tiled", "push", "pull"])
+@pytest.mark.parametrize("bf16", [False, True])
 @pytest.mark.parametrize("stream", [None, True, False])
-def test_cpu_window_deposit_is_plain_for_every_choice(stream, impl):
-    """On the CPU, K1 is its plain version for every `stream` and `impl`,
+def test_cpu_window_deposit_is_plain_for_every_choice(stream, bf16):
+    """On the CPU, K1 is its plain version for every `stream` and `bf16`,
     and no counter moves."""
     pos = positions(G, 1)
     w = torch.rand((2,) + G.shape, generator=torch.Generator().manual_seed(2))
     n0 = launch_counts()
     for weights in (None, w):
         out = tk.tsc_deposit_window(pos, G, 3, (16, 16), weights=weights,
-                                    stream=stream, impl=impl)
+                                    stream=stream, bf16=bf16)
         assert torch.equal(out, tk.tsc_deposit_window_plain(
-            pos, G, 3, (16, 16), weights=weights))
+            pos, G, 3, (16, 16), weights=weights, bf16=bf16))
     assert launch_counts() == n0
 
 
-@pytest.mark.parametrize("impl", ["tiled", "push"])
-def test_cpu_slab_deposit_is_plain_for_every_choice(impl):
+@pytest.mark.parametrize("bf16", [False, True])
+def test_cpu_slab_deposit_is_plain_for_every_choice(bf16):
     pos = positions(G, 3)[:, :, :8].contiguous()
     w = torch.rand((2, 8, 16, 16), generator=torch.Generator().manual_seed(4))
     n0 = launch_counts()
     for weights in (None, w):
-        out = tk.tsc_deposit_slab(pos, G, 8, 1, 4, weights=weights, impl=impl)
+        out = tk.tsc_deposit_slab(pos, G, 8, 1, 4, weights=weights, bf16=bf16)
         assert torch.equal(out, tk.tsc_deposit_slab_plain(
-            pos, G, 8, 1, 4, weights=weights))
+            pos, G, 8, 1, 4, weights=weights, bf16=bf16))
     assert launch_counts() == n0
-
-
-def test_unknown_impl_raises():
-    pos = positions(G, 5)
-    with pytest.raises(ValueError, match="impl"):
-        tk.tsc_deposit_window(pos, G, 3, (16, 16), impl="fast")
-    with pytest.raises(ValueError, match="impl"):
-        tk.tsc_deposit_slab(pos[:, :, :8].contiguous(), G, 8, 0, 4,
-                            impl="pull")
 
 
 def _scale_as_before(weights, n):
