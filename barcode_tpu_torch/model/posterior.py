@@ -81,14 +81,21 @@ def make_psi_value_and_grad(g: GridSpec, mc: ModelConfig, gp: GrowthParams,
     return _value_and_grad(target)
 
 
+def force_factors(mc: ModelConfig, gp: GrowthParams) -> tuple:
+    """(f_p, f_l): the prior and likelihood force scalings, correct_delta's
+    x D1 folded into f_l (posterior.py:110-111)."""
+    return (float(mc.grad_prior_factor),
+            float(mc.grad_likeli_factor) * (gp.D1 if mc.correct_delta
+                                            else 1.0))
+
+
 def make_psi_force(g: GridSpec, mc: ModelConfig, gp: GrowthParams,
                    obs: ObsData):
     """Like make_psi_value_and_grad, but the gradient is of the scaled target
     f_p*prior + f_l*like (the reference's gradient test factors;
     correct_delta folds x D1 into f_l) while psi stays exact
     (posterior.py:97-124).  Default factors give make_psi_value_and_grad."""
-    f_p = float(mc.grad_prior_factor)
-    f_l = float(mc.grad_likeli_factor) * (gp.D1 if mc.correct_delta else 1.0)
+    f_p, f_l = force_factors(mc, gp)
     if f_p == 1.0 and f_l == 1.0:
         return make_psi_value_and_grad(g, mc, gp, obs)
     psi_fn = make_psi(g, mc, gp, obs)

@@ -13,8 +13,15 @@ shifts, the all-reduced mean) are autograd Functions whose backward is the
 adjoint collective, so the gradient a rank gets for its slab is that of the
 global psi.  The all-reduce of the reported values stays out of the graph.
 
+Options: `check_sharded_options` refuses what the slab posterior does not
+compute as `model/posterior.make_psi_force` does (masskernel 0/1/3, radial
+or non-periodic RSD, finite-difference 2LPT); every other option of the
+ModelConfig reaches it, as in the dense posterior.
+
 Halo contract: a particle's deposit support must stay within `halo` cells
-of its home slab in x; `suggest_halo` picks a safe value from the box.  With
+of its home slab in x; `suggest_halo` picks a safe value from the box, and
+`slab_violations` counts the particles that break it on the windowless
+path.  With
 `pallas_deposit` the deposit runs through kernels K3 (forward) and K4
 (backward) at the (quantile) kernel halo, with the halo-tail split of the
 JAX package; otherwise it is a plain windowless scatter summed in fixed
@@ -36,6 +43,7 @@ from barcode_tpu_torch.forward.lag2eul import (ForwardConfig, GrowthParams,
                                                kernel_h)
 from barcode_tpu_torch.model import likelihoods
 from barcode_tpu_torch.model.likelihoods import ObsData
+from barcode_tpu_torch.model.posterior import ModelConfig, force_factors
 from barcode_tpu_torch.parallel import sharded_fft as sf
 
 AXIS = "grid"
@@ -183,6 +191,21 @@ def _deposit_local(pos, g: GridSpec, halo: int, layout):
     return _halo_exchange_add(ext, halo, layout)
 
 
+def slab_violations(pos, g: GridSpec, halo: int, n_dev: int):
+    """Particles whose mass `_deposit_local` misplaces, one count per chain
+    of the full-grid positions `pos` (..., 3, N1, N2, N3): a TSC support
+    leaving the slab's rows +- `halo` in x, where the base row is clamped
+    into the edge row and taps beyond it are dropped (y and z wrap)."""
+    n1_loc = g.N1 // n_dev
+    b0 = torch.floor(pos.select(-4, 0) / g.cell[0])
+    q = torch.arange(g.N1, dtype=pos.dtype, device=pos.device
+                     ).reshape(-1, 1, 1)
+    off = torch.remainder(b0 - q + g.N1 / 2.0, g.N1) - g.N1 / 2.0
+    row = torch.remainder(q, n1_loc) + off
+    bad = (row < 1 - halo) | (row > n1_loc - 2 + halo)
+    return bad.sum(dim=_GRID)
+
+
 class _SlabDeposit(torch.autograd.Function):
     """Unit-mass slab deposit into the extended buffer: K3 forward, K4
     backward, with the halo-tail split (sharded_forward.py:118-202)."""
@@ -291,19 +314,21 @@ def _w4_sharded(g: GridSpec, n_dev: int, dev: int, h: float, device=None):
 # The slab-local posterior
 # ---------------------------------------------------------------------------
 
-def _make_psi_local(g: GridSpec, fc: ForwardConfig, gp: GrowthParams,
-                    likelihood: int, halo: int, layout):
-    """psi_local(delta, nobs, window, noise, power_f) -> (psi_prior,
-    psi_like): this rank's partial sums, one per chain of the local batch
-    (sharded_forward.py:205-306).  delta is (C, n1_loc, N2, N3).  As in the
-    JAX package the slab deposit is TSC for every masskernel ('sph_ft'
-    adds the W4 convolution)."""
+def _make_psi_local(g: GridSpec, mc: ModelConfig, gp: GrowthParams,
+                    halo: int, layout):
+    """psi_local(delta, obs) -> (psi_prior, psi_like): this rank's partial
+    sums, one per chain of the local batch (sharded_forward.py:205-306).
+    delta is (C, n1_loc, N2, N3), obs this rank's slabs (`shard_obs`) with
+    the full model's scalars.  As in `posterior.make_psi`, likelihood 3
+    reads the Lagrangian delta (no forward model) and the forward model
+    sees deltaQ_factor * delta.  The slab deposit is TSC or 'sph_ft'
+    (`check_sharded_options` refuses the others)."""
+    fc = mc.forward
     n_dev, dev, group = layout.n_grid, layout.col, layout.grid_group
     device = layout.device
     h = kernel_h(fc, g)
-    mk = {0: "ngp", 1: "cic", 2: "tsc", 3: "sph"}.get(fc.masskernel,
-                                                      fc.masskernel)
-    use_pallas = bool(fc.pallas_deposit) and mk in ("tsc", "sph_ft")
+    mk = _mass_kernel(fc)
+    use_pallas = bool(fc.pallas_deposit)
     if use_pallas:
         pallas_dep, halo = _make_pallas_slab_deposit(
             g, halo, n_dev, block=tuple(fc.pallas_block),
@@ -314,13 +339,12 @@ def _make_psi_local(g: GridSpec, fc: ForwardConfig, gp: GrowthParams,
     q_pos = _local_positions_x(g, n_dev, dev, device=device)
     L = torch.tensor([g.L1, g.L2, g.L3], device=device).reshape(3, 1, 1, 1)
     w4 = _w4_sharded(g, n_dev, dev, h, device) if mk == "sph_ft" else None
-    if fc.sfmodel not in (1, 2, 3):
-        raise ValueError(f"unknown sfmodel {fc.sfmodel}")
+    dq = float(mc.deltaQ_factor)
     rfft = lambda x: sf._rfft3_local(x, group)
     irfft = lambda F: sf._irfft3_local(F, g.N3, group)
 
-    def psi_local(delta, nobs, window, noise, power_f):
-        Fd = rfft(delta)
+    def forward(delta, Fd):
+        """Slab of the Eulerian overdensity of delta (spectrum Fd)."""
         # --- LPT divergence (mirrors lpt.py on the sharded layout) ---
         if fc.sfmodel == 1:
             div_C = -gp.D1 * Fd
@@ -350,7 +374,7 @@ def _make_psi_local(g: GridSpec, fc: ForwardConfig, gp: GrowthParams,
             # cellbound half-cell average; the +1 x-roll crosses slabs
             psi = 0.5 * (psi + _roll_x1(torch.roll(psi, (1, 1), (-2, -1)),
                                         layout))
-        # --- particles + optional RSD ---
+        # --- particles + optional plane-parallel RSD (periodic in z) ---
         pos = torch.remainder(q_pos + psi, L)
         if fc.rsd:
             f1 = gp.cpecvel / (gp.hubble * gp.ascale)
@@ -368,13 +392,20 @@ def _make_psi_local(g: GridSpec, fc: ForwardConfig, gp: GrowthParams,
             rho = irfft(w4 * rfft(rho))
         # --- overdensity with the global mean ---
         mean = _AllReduce.apply(rho.mean(dim=_GRID), group) / n_dev
-        delta_x = rho / mean.reshape(mean.shape + (1, 1, 1)) - 1.0
-        # --- likelihood + prior (this rank's partial sums) ---
-        obs_loc = ObsData(nobs=nobs, window=window, noise=noise, power=0.0)
-        psi_like = likelihoods.likelihood_psi(likelihood, delta_x, obs_loc)
-        inv_p = torch.where(power_f > 0,
-                            (g.vol / g.N) / torch.where(power_f > 0, power_f,
-                                                        1.0), 0.0)
+        return rho / mean.reshape(mean.shape + (1, 1, 1)) - 1.0
+
+    def psi_local(delta, obs: ObsData):
+        Fd = rfft(delta)
+        if mc.likelihood == 3:
+            psi_like = likelihoods.grf_psi(delta, obs)
+        else:
+            d, F = (delta, Fd) if dq == 1.0 else (dq * delta, dq * Fd)
+            psi_like = likelihoods.likelihood_psi(mc.likelihood,
+                                                  forward(d, F), obs)
+        # --- prior (this rank's partial sum) ---
+        inv_p = torch.where(obs.power > 0,
+                            (g.vol / g.N) / torch.where(obs.power > 0,
+                                                        obs.power, 1.0), 0.0)
         Sinv_d = irfft(inv_p * Fd)
         psi_prior = 0.5 * torch.sum(delta * Sinv_d, dim=_GRID)
         return psi_prior, psi_like
@@ -390,9 +421,46 @@ def _global_sums(pp, pl, group):
     return both[0], both[1]
 
 
-def _check_halo(g: GridSpec, fc: ForwardConfig, n_dev: int, halo):
+def _mass_kernel(fc: ForwardConfig):
+    return {0: "ngp", 1: "cic", 2: "tsc", 3: "sph"}.get(fc.masskernel,
+                                                       fc.masskernel)
+
+
+def check_sharded_options(mc: ModelConfig) -> None:
+    """Raise ValueError, naming the input.par key, for every option the slab
+    posterior does not compute as `posterior.make_psi_force` does: its
+    deposit is TSC or 'sph_ft' only, its RSD shifts z inside the periodic
+    box, and its 2LPT source takes FFT derivatives.  Radial RSD moves x
+    and finite differences reach across slabs, so either would need
+    another slab geometry (the JAX package has the same gaps and no check,
+    barcode_tpu/parallel/sharded_forward.py:294-335)."""
+    fc = mc.forward
+    if mc.likelihood not in (0, 1, 2, 3):
+        raise ValueError(f"unknown likelihood {mc.likelihood}")
     if fc.sfmodel not in (1, 2, 3):
         raise ValueError(f"unknown sfmodel {fc.sfmodel}")
+    where = "--sharded computes "
+    if _mass_kernel(fc) not in ("tsc", "sph_ft"):
+        raise ValueError(
+            f"masskernel = {fc.masskernel}: {where}the TSC (2) and sph_ft "
+            "deposits only")
+    if fc.rsd and not fc.rsd_planepar:
+        raise ValueError(
+            f"planepar = false (radial RSD): {where}plane-parallel RSD "
+            "only; radial RSD moves particles across slabs in x")
+    if fc.rsd and not fc.periodic:
+        raise ValueError(
+            f"periodic = false with rsd_model: {where}periodic "
+            "plane-parallel RSD only")
+    if fc.deriv_scheme != "fft" and fc.sfmodel != 1:
+        raise ValueError(
+            f"deriv_scheme = {fc.deriv_scheme} with sfmodel = "
+            f"{fc.sfmodel}: {where}FFT derivatives of the 2LPT source "
+            "only; finite differences reach across slabs")
+
+
+def _check_halo(g: GridSpec, mc: ModelConfig, n_dev: int, halo):
+    check_sharded_options(mc)
     halo = halo if halo is not None else suggest_halo(g)
     if halo > g.N1 // n_dev:
         raise ValueError(
@@ -402,57 +470,64 @@ def _check_halo(g: GridSpec, fc: ForwardConfig, n_dev: int, halo):
     return halo
 
 
-def _value_and_grad(psi_local, obs: ObsData, group):
+def _value_and_grad(psi_local, mc: ModelConfig, gp: GrowthParams,
+                    obs: ObsData, group):
     """delta (C, n1_loc, N2, N3) -> ((psi, (pp, pl)), grad), psi and its
-    parts global per chain, grad this rank's slab of d psi / d delta."""
+    parts global per chain, grad this rank's slab of the force: the
+    gradient of f_p * pp + f_l * pl (`posterior.force_factors`) while psi
+    stays exact, as `posterior.make_psi_force`."""
+    f_p, f_l = force_factors(mc, gp)
 
     def vag(delta):
         with torch.enable_grad():
             d = delta.detach().requires_grad_(True)
-            pp, pl = psi_local(d, obs.nobs, obs.window, obs.noise, obs.power)
-            (grad,) = torch.autograd.grad((pp + pl).sum(), d)
+            pp, pl = psi_local(d, obs)
+            obj = pp + pl if f_p == 1.0 and f_l == 1.0 else \
+                f_p * pp + f_l * pl
+            (grad,) = torch.autograd.grad(obj.sum(), d)
         pp, pl = _global_sums(pp, pl, group)
         return (pp + pl, (pp, pl)), grad
 
     return vag
 
 
-def make_sharded_psi(g: GridSpec, fc: ForwardConfig, gp: GrowthParams,
-                     likelihood: int, layout, halo: int | None = None):
+def make_sharded_psi(g: GridSpec, mc: ModelConfig, gp: GrowthParams, layout,
+                     halo: int | None = None):
     """(psi_fn, grad_fn) over this rank's slab: psi_fn(delta_slab, obs) ->
     global psi (a float), grad_fn(delta_slab, obs) -> this rank's slab of
-    grad psi.  delta and the obs fields are this rank's x-slabs, obs.power
-    the ky-slab of the sharded Fourier layout (power_to_sharded_layout).
-    Every rank of the grid group calls them together."""
-    halo = _check_halo(g, fc, layout.n_grid, halo)
-    psi_local = _make_psi_local(g, fc, gp, likelihood, halo, layout)
+    the force (grad psi at the default factors).  delta and the obs fields
+    are this rank's x-slabs, obs.power the ky-slab of the sharded Fourier
+    layout (power_to_sharded_layout).  Every rank of the grid group calls
+    them together."""
+    halo = _check_halo(g, mc, layout.n_grid, halo)
+    psi_local = _make_psi_local(g, mc, gp, halo, layout)
 
     def psi_fn(delta, obs: ObsData):
         with torch.no_grad():
-            pp, pl = psi_local(delta[None], obs.nobs, obs.window, obs.noise,
-                               obs.power)
+            pp, pl = psi_local(delta[None], obs)
         pp, pl = _global_sums(pp, pl, layout.grid_group)
         return float((pp + pl)[0])
 
     def grad_fn(delta, obs: ObsData):
-        return _value_and_grad(psi_local, obs, layout.grid_group)(
+        return _value_and_grad(psi_local, mc, gp, obs, layout.grid_group)(
             delta[None])[1][0]
 
     return psi_fn, grad_fn
 
 
-def make_sharded_psi_vg_chains(g: GridSpec, fc: ForwardConfig,
-                               gp: GrowthParams, likelihood: int, layout,
+def make_sharded_psi_vg_chains(g: GridSpec, mc: ModelConfig,
+                               gp: GrowthParams, layout,
                                halo: int | None = None):
-    """Per-chain (psi values, grads) over a (chains, grid) layout:
+    """Per-chain (psi values, forces) over a (chains, grid) layout:
     vg(delta_batch, obs) -> ((vals, (pp, pl)), grads) for this rank's local
     chains, delta_batch (C_loc, n1_loc, N2, N3)
     (sharded_forward.py:336-381)."""
-    halo = _check_halo(g, fc, layout.n_grid, halo)
-    psi_local = _make_psi_local(g, fc, gp, likelihood, halo, layout)
+    halo = _check_halo(g, mc, layout.n_grid, halo)
+    psi_local = _make_psi_local(g, mc, gp, halo, layout)
 
     def vg(delta_batch, obs: ObsData):
-        return _value_and_grad(psi_local, obs, layout.grid_group)(delta_batch)
+        return _value_and_grad(psi_local, mc, gp, obs, layout.grid_group)(
+            delta_batch)
 
     return vg
 

@@ -65,6 +65,9 @@ class ShardedRunner:
         self.gp = conf.growth()
         self.layout = layout if layout is not None else \
             default_mesh(conf.n_chains, device)
+        # before the mock and before any file: refuse what the slab
+        # posterior would not compute as the dense one does
+        sfw.check_sharded_options(conf.model)
         self.device = self.layout.device
         self.n_chains = self.layout.n_chains
         self.is_main = self.layout.rank == 0
@@ -177,8 +180,9 @@ class ShardedRunner:
         # halos: the measured displacement bound of the mock truth is the
         # exchange margin; with the tail split the kernels run at the
         # quantile halo (sharded_runner.py:180-205)
-        if self.truth is not None and self.halo is None:
-            self.halo = tk.displacement_bound_cells(self.truth, g, fc, gp)
+        if self.halo is None:
+            self.halo = (tk.displacement_bound_cells(self.truth, g, fc, gp)
+                         if self.truth is not None else sfw.suggest_halo(g))
         if fc.pallas_deposit and self.truth is not None and \
                 fc.pallas_tail_k > 0 and fc.pallas_halo <= 0:
             fc = dataclasses.replace(fc, pallas_halo=(
@@ -186,8 +190,10 @@ class ShardedRunner:
                                               fc.pallas_tail_k)))
             self.conf = conf = dataclasses.replace(
                 conf, model=dataclasses.replace(conf.model, forward=fc))
-        self._monitor_violations = bool(fc.pallas_deposit and
-                                        fc.pallas_halo > 0)
+        # the kernel path watches its kernel halo (or tail); the
+        # windowless path its exchange margin, where it clamps (C4)
+        self._monitor_violations = bool(fc.pallas_halo > 0 or
+                                        not fc.pallas_deposit)
 
         # per-chain starts, drawn in global chain order on every rank
         if conf.initial_guess in (2, 3, 4):
@@ -203,8 +209,8 @@ class ShardedRunner:
         ids = lay.chain_ids
         local = shard_real(batch[ids.start:ids.stop], lay).contiguous()
 
-        self._vg = sfw.make_sharded_psi_vg_chains(
-            g, fc, gp, conf.model.likelihood, lay, halo=self.halo)
+        self._vg = sfw.make_sharded_psi_vg_chains(g, conf.model, gp, lay,
+                                                  halo=self.halo)
         (vals, aux), grads = self._vg(local, self.obs_sh)
         seeds = [conf.seed + 1 + c for c in ids]
         eps0 = [conf.hmc.eps_fac_start(g.N)] * len(ids)
@@ -213,7 +219,7 @@ class ShardedRunner:
         self._power = power
         self.mass_f = self._compute_mass_f(batch[0])
         self._run = ss.make_sharded_sampler(
-            g, fc, gp, conf.model.likelihood, conf.hmc, lay, halo=self.halo,
+            g, conf.model, gp, conf.hmc, lay, halo=self.halo,
             n_attempts_per_call=self.attempt_batch)
         return self
 
@@ -257,7 +263,14 @@ class ShardedRunner:
                     self._write(f"deltaRSS_{iteration}",
                                 lag2eul(s, self.g, fwd, self.gp))
             if self._monitor_violations:
-                warn_violations(fc, self._violations(s))
+                n = self._violations(s)
+                if fc.pallas_deposit:
+                    warn_violations(fc, n)
+                elif n:
+                    print(f"WARNING: {n} particles breach the slab exchange "
+                          f"halo (halo={self.halo}) — the windowless deposit "
+                          "clamps their mass into the edge rows; increase "
+                          "--halo")
         if spectrum:
             km, pw = self._dump_spectrum(f"powSpecit{iteration}.dat", s)
             acc = float(_host(acc_flags).mean())
@@ -266,12 +279,16 @@ class ShardedRunner:
             self._protocols.log_spectrum(iteration, km, pw, self._truth_spec)
 
     def _violations(self, s) -> int:
-        """Kernel-halo contract violators of one dense signal (x/y only)."""
+        """Contract violators of one dense signal: of the kernel halo (x/y)
+        with the kernel deposit, of the exchange margin (x) without."""
         fc = self.conf.model.forward
         with torch.no_grad():
             pos = displaced_positions(s, self.g, dataclasses.replace(
                 fc, rsd=False), self.gp)
-            return int(tk.deposit_violations(pos, self.g, fc.pallas_halo))
+            if fc.pallas_deposit:
+                return int(tk.deposit_violations(pos, self.g, fc.pallas_halo))
+            return int(sfw.slab_violations(pos, self.g, self.halo,
+                                           self.layout.n_grid))
 
     # -- sampling loop -------------------------------------------------------
 

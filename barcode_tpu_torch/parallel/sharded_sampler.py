@@ -5,10 +5,11 @@ sampling mode: every field of every chain is x-slab-sharded over the ranks
 of a 'grid' group while independent chains run on the rows of the layout
 (and in a local batch on each rank).  One attempt: the adaptive-eps
 controller -> momenta p ~ N(0, M) drawn slab-locally and coloured through
-the sharded FFT -> masked fixed-length leapfrog (`hmc.sampler.leapfrog`)
-with the slab-local posterior gradient -> Metropolis accept, with the
-12-column AttemptStats of the dense sampler.  With hc.pool_adaptation the
-controller tables are gathered over the `chains` group and the local batch.
+the sharded FFT -> masked fixed-length integration (`hmc.sampler.leapfrog`
+with hc.integrator) of the slab-local posterior force -> Metropolis
+accept, with the 12-column AttemptStats of the dense sampler.  With
+hc.pool_adaptation the controller tables are gathered over the `chains`
+group and the local batch.
 
 Scope: Fourier-space masses (`mass_f` in the sharded Fourier layout); the
 ShardedRunner gates on this.
@@ -28,11 +29,12 @@ import torch.distributed as dist
 
 from barcode_tpu_torch.grid.spec import GridSpec
 from barcode_tpu_torch.config import HMCConfig
-from barcode_tpu_torch.forward.lag2eul import ForwardConfig, GrowthParams
+from barcode_tpu_torch.forward.lag2eul import GrowthParams
 from barcode_tpu_torch.hmc import adapt
-from barcode_tpu_torch.hmc.sampler import _select, leapfrog
+from barcode_tpu_torch.hmc.sampler import AttemptRandoms, _select, leapfrog
 from barcode_tpu_torch.hmc.state import AttemptStats
 from barcode_tpu_torch.model.likelihoods import ObsData
+from barcode_tpu_torch.model.posterior import ModelConfig
 from barcode_tpu_torch.parallel import sharded_fft as sf
 from barcode_tpu_torch.parallel.sharded_forward import (_check_halo,
                                                         _make_psi_local,
@@ -112,15 +114,17 @@ def _gather_chains(layout):
     return gather
 
 
-def make_sharded_attempt(g: GridSpec, fc: ForwardConfig, gp: GrowthParams,
-                         likelihood: int, hc: HMCConfig, layout,
-                         halo: int | None = None):
-    """attempt(state, obs, mass_f) -> (state', AttemptStats of (C_loc,)
-    tensors), one attempt of this rank's chains (sharded_sampler.py:85-230).
-    obs from sharded_forward.shard_obs_chains; mass_f the half-complex mass
-    spectrum in the sharded Fourier layout.  Every rank calls it together."""
-    halo = _check_halo(g, fc, layout.n_grid, halo)
-    psi_local = _make_psi_local(g, fc, gp, likelihood, halo, layout)
+def make_sharded_attempt(g: GridSpec, mc: ModelConfig, gp: GrowthParams,
+                         hc: HMCConfig, layout, halo: int | None = None):
+    """attempt(state, obs, mass_f, randoms=None) -> (state', AttemptStats of
+    (C_loc,) tensors), one attempt of this rank's chains
+    (sharded_sampler.py:85-230), integrated with hc.integrator.  obs from
+    sharded_forward.shard_obs_chains; mass_f the half-complex mass
+    spectrum in the sharded Fourier layout; `randoms` (the dense sampler's
+    AttemptRandoms with this rank's slab of the momenta) replaces the
+    chains' own draws.  Every rank calls it together."""
+    halo = _check_halo(g, mc, layout.n_grid, halo)
+    psi_local = _make_psi_local(g, mc, gp, halo, layout)
     n_eps_max = int(hc.N_eps_fac)
     group, col = layout.grid_group, layout.col
     gather = _gather_chains(layout) if hc.pool_adaptation else None
@@ -128,17 +132,26 @@ def make_sharded_attempt(g: GridSpec, fc: ForwardConfig, gp: GrowthParams,
     rfft = lambda x: sf._rfft3_local(x, group)
     irfft = lambda F: sf._irfft3_local(F, g.N3, group)
 
-    def attempt(state: dict, obs: ObsData, mass_f):
+    def attempt(state: dict, obs: ObsData, mass_f,
+                randoms: AttemptRandoms | None = None):
         dev = state["delta"].device
         C = state["delta"].shape[0]
-        seeds = state["seed"].tolist()
-        counts = state["count_attempts"].tolist()
-        u = torch.stack([torch.rand(3, generator=attempt_generator(
-            s, n, 0, dev), device=dev) for s, n in zip(seeds, counts)])
-        w = torch.stack([torch.randn((n1_loc, g.N2, g.N3),
-                                     generator=attempt_generator(
-                                         s, n, 1 + col, dev), device=dev)
-                         for s, n in zip(seeds, counts)])
+        # momenta p ~ N(0, M): slab-local white noise coloured by
+        # sqrt(mass_f * N / V) through the sharded FFT
+        if randoms is None:
+            seeds = state["seed"].tolist()
+            counts = state["count_attempts"].tolist()
+            u = torch.stack([torch.rand(3, generator=attempt_generator(
+                s, n, 0, dev), device=dev) for s, n in zip(seeds, counts)])
+            w = torch.stack([torch.randn((n1_loc, g.N2, g.N3),
+                                         generator=attempt_generator(
+                                             s, n, 1 + col, dev), device=dev)
+                             for s, n in zip(seeds, counts)])
+            p0 = irfft(torch.sqrt(mass_f * (g.N / g.vol)) * rfft(w))
+        else:
+            u = torch.stack([randoms.u_neps, randoms.u_eps, randoms.u_acc],
+                            dim=-1)
+            p0 = randoms.momenta
 
         # 1. adaptive-eps controller on the completed-attempt tables
         eps_fac = adapt.update_eps_fac(
@@ -146,10 +159,7 @@ def make_sharded_attempt(g: GridSpec, fc: ForwardConfig, gp: GrowthParams,
             state["got_first_accept"], state["acc_flags"], state["eps_table"],
             hc, g.N, pool=hc.pool_adaptation, gather=gather)
 
-        # 2. momenta p ~ N(0, M): slab-local white noise coloured by
-        # sqrt(mass_f * N / V) through the sharded FFT
-        amp = torch.sqrt(mass_f * (g.N / g.vol))
-        p0 = irfft(amp * rfft(w))
+        # 2. the kinetic energy's M^-1 in the sharded Fourier layout
         inv_m = torch.where(mass_f > 0.0, (g.vol / g.N)
                             / torch.where(mass_f > 0.0, mass_f, 1.0), 0.0)
 
@@ -168,11 +178,12 @@ def make_sharded_attempt(g: GridSpec, fc: ForwardConfig, gp: GrowthParams,
         H_i = H_kin_i + state["psi"]
 
         # 4. masked fixed-length leapfrog
-        vag = _value_and_grad(psi_local, obs, group)
+        vag = _value_and_grad(psi_local, mc, gp, obs, group)
         carry0 = (state["delta"], state["psi"], state["psi_prior"],
                   state["psi_like"], state["grad"], p0)
         s_f, psi_f, pp_f, pl_f, grad_f, p_f = leapfrog(
-            vag, minv, carry0, eps, Neps, n_eps_max)
+            vag, minv, carry0, eps, Neps, n_eps_max,
+            integrator=hc.integrator)
 
         # 5. Metropolis (NaN-safe; div_dH_by_N as the dense sampler)
         H_kin_f = kinetic(p_f)
@@ -217,15 +228,13 @@ def make_sharded_attempt(g: GridSpec, fc: ForwardConfig, gp: GrowthParams,
     return attempt
 
 
-def make_sharded_sampler(g: GridSpec, fc: ForwardConfig, gp: GrowthParams,
-                         likelihood: int, hc: HMCConfig, layout,
-                         halo: int | None = None,
+def make_sharded_sampler(g: GridSpec, mc: ModelConfig, gp: GrowthParams,
+                         hc: HMCConfig, layout, halo: int | None = None,
                          n_attempts_per_call: int = 1):
     """run(state, obs, mass_f) -> (state', AttemptStats of (n_attempts,
     C_loc) numpy arrays): n_attempts_per_call attempts per call, as the
     JAX package's scan (sharded_sampler.py:233-258)."""
-    attempt = make_sharded_attempt(g, fc, gp, likelihood, hc, layout,
-                                   halo=halo)
+    attempt = make_sharded_attempt(g, mc, gp, hc, layout, halo=halo)
 
     def run(state: dict, obs: ObsData, mass_f):
         records = []

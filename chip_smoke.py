@@ -88,6 +88,14 @@ Phases:
  12. sharded_psi256
                   sharded psi and grad psi at 256^3, one rank over NCCL,
                   against the dense psi on the card
+ 12b. sharded_options
+                  the sharded posterior against the dense one at 128^3, one
+                  rank, for every option it accepts (likelihoods 0-3, a
+                  clipping delta_min, rho_c/biasP/biasE, the force factors,
+                  correct_delta, deltaQ_factor, sfmodel 1-3, windowless);
+                  one minimal_norm_2 attempt, sharded against dense; each
+                  refused option (masskernel 0/1/3, radial RSD, periodic =
+                  false with RSD, findif 2LPT) raises ValueError naming it
  13. sharded_cli256
                   three `--sharded` command-line calls at 256^3 (session;
                   --resume; restart from deltaLAG_2 without
@@ -149,10 +157,13 @@ from barcode_tpu_torch.forward.lag2eul import (ForwardConfig,
 from barcode_tpu_torch.grid import fourier
 from barcode_tpu_torch.grid.spec import GridSpec
 from barcode_tpu_torch.hmc import mass as mass_mod
+from barcode_tpu_torch.hmc import sampler as hmc_sampler
 from barcode_tpu_torch.model import likelihoods
-from barcode_tpu_torch.model.posterior import ModelConfig, make_psi_value_and_grad
+from barcode_tpu_torch.model.posterior import (ModelConfig, make_psi_force,
+                                               make_psi_value_and_grad)
 from barcode_tpu_torch.parallel import distributed as pdist
 from barcode_tpu_torch.parallel import sharded_forward as sfw
+from barcode_tpu_torch.parallel import sharded_sampler as ss
 from barcode_tpu_torch.parallel.sharded_fft import shard_real
 from barcode_tpu_torch.runner import Runner, likelihood_force
 
@@ -1003,8 +1014,8 @@ def phase_sharded_psi256(dev, runner: Runner):
           f"world {world}; exchange halo {halo}, kernel halo "
           f"{fc.pallas_halo} (rounded to {-(-fc.pallas_halo // 4) * 4}), "
           f"tail_k {fc.pallas_tail_k}")
-    psi_fn, grad_fn = sfw.make_sharded_psi(g, fc, gp, conf.model.likelihood,
-                                           layout, halo=halo)
+    psi_fn, grad_fn = sfw.make_sharded_psi(g, conf.model, gp, layout,
+                                           halo=halo)
     obs = sfw.shard_obs(runner.obs, layout)
     delta = runner.truth
     s_loc = shard_real(delta, layout).contiguous()
@@ -1036,6 +1047,148 @@ def phase_sharded_psi256(dev, runner: Runner):
         raise RuntimeError(f"sharded psi launches {launches}: expected K3 "
                            "twice (value, then value and grad), K4 once and "
                            "nothing else")
+
+
+# the options the slab posterior computes (ModelConfig fields, forward
+# fields, ObsData scalars), each held to the dense posterior on the card
+SHARDED_OPTIONS = {
+    "headline": ({}, {}, {}),
+    "likelihood 0": (dict(likelihood=0), {}, {}),
+    "likelihood 2": (dict(likelihood=2), {}, {}),
+    "likelihood 2, delta_min -0.5": (dict(likelihood=2), {},
+                                     dict(delta_min=-0.5)),
+    "likelihood 3": (dict(likelihood=3), {}, {}),
+    "rho_c 1.5, biasP 0.9, biasE 1.2": ({}, {}, dict(rho_c=1.5, biasP=0.9,
+                                                    biasE=1.2)),
+    "grad_prior_factor 0.5": (dict(grad_prior_factor=0.5), {}, {}),
+    "grad_likeli_factor 2": (dict(grad_likeli_factor=2.0), {}, {}),
+    "correct_delta": (dict(correct_delta=True), {}, {}),
+    "deltaQ_factor 0.8": (dict(deltaQ_factor=0.8), {}, {}),
+    "sfmodel 1": ({}, dict(sfmodel=1), {}),
+    "sfmodel 2": ({}, dict(sfmodel=2), {}),
+    "windowless sph_ft": ({}, dict(pallas_deposit=False), {}),
+}
+# the options it refuses, each with the input.par words its message names
+SHARDED_REFUSED = {
+    "masskernel = 0": dict(masskernel=0),
+    "masskernel = 1": dict(masskernel=1),
+    "masskernel = 3": dict(masskernel=3),
+    "planepar = false": dict(rsd_planepar=False),
+    "periodic = false": dict(periodic=False),
+    "deriv_scheme = findif": dict(deriv_scheme="findif"),
+}
+
+
+def phase_sharded_options(dev, model: dict):
+    """The sharded posterior against the dense one on the card for every
+    option it accepts (the headline model at 128^3 and one option changed
+    at a time, from the first chain's delta, one rank): psi within
+    TOL_PSI_REL, the force within TOL_GRAD_REL (relative L2); one
+    minimal_norm_2 attempt from the same state and momenta, sharded
+    against dense; every refused option raises ValueError naming it."""
+    g, gp, mc, obs = (model[k] for k in ("g", "gp", "mc", "obs"))
+    delta = model["delta"][:1]
+    layout = pdist.make_layout(1, 1, device=dev.type)
+    print(f"  {g.N1}^3, one rank; the headline: sfmodel "
+          f"{mc.forward.sfmodel}, {mc.forward.masskernel}, plane-parallel "
+          f"RSD, likelihood {mc.likelihood}, tail_k "
+          f"{mc.forward.pallas_tail_k}; each case's halos measured on its "
+          "own positions, as the runners measure them")
+    worst = [0.0, 0.0]
+    for name, (mfields, ffields, scalars) in SHARDED_OPTIONS.items():
+        mc_c = dataclasses.replace(mc, forward=dataclasses.replace(
+            mc.forward, **ffields), **mfields)
+        fc_c = mc_c.forward
+        d_fwd = mc_c.deltaQ_factor * delta[0]
+        halo = tk.displacement_bound_cells(d_fwd, g, fc_c, gp)
+        if fc_c.pallas_deposit:
+            mc_c = dataclasses.replace(mc_c, forward=dataclasses.replace(
+                fc_c, pallas_halo=tk.displacement_halo_quantile(
+                    d_fwd, g, fc_c, gp, fc_c.pallas_tail_k)))
+        obs_c = dataclasses.replace(obs, **scalars)
+        t0 = time.perf_counter()
+        (psi_d, _), grad_d = make_psi_force(g, mc_c, gp, obs_c)(delta)
+        sync(dev)
+        t1 = time.perf_counter()
+        vg = sfw.make_sharded_psi_vg_chains(g, mc_c, gp, layout, halo=halo)
+        (psi_s, _), grad_s = vg(shard_real(delta, layout).contiguous(),
+                                sfw.shard_obs(obs_c, layout))
+        sync(dev)
+        t2 = time.perf_counter()
+        psi_err = abs(psi_s[0].item() - psi_d[0].item()) / abs(psi_d[0].item())
+        grad_err = (torch.linalg.vector_norm(grad_s - grad_d)
+                    / torch.linalg.vector_norm(grad_d)).item()
+        worst = [max(worst[0], psi_err), max(worst[1], grad_err)]
+        extra = ""
+        if "delta_min" in scalars:
+            with torch.no_grad():
+                dx = lag2eul(delta[0], g, mc_c.forward, gp)
+            clipped = int((dx < scalars["delta_min"]).sum())
+            extra = f"; {clipped} cells clipped"
+            if not clipped:
+                raise RuntimeError(f"{name}: delta_min clips no cell")
+        ok = (psi_err <= TOL_PSI_REL and grad_err <= TOL_GRAD_REL
+              and bool(torch.isfinite(grad_s).all()))
+        print(f"  {name} (halo {halo}, kernel halo "
+              f"{mc_c.forward.pallas_halo if fc_c.pallas_deposit else '-'}): "
+              f"psi sharded {psi_s[0].item()} dense {psi_d[0].item()}, rel "
+              f"err {psi_err:.3e}; force rel L2 err {grad_err:.3e}; dense "
+              f"{t1 - t0:.3f} s, sharded {t2 - t1:.3f} s{extra} "
+              f"{'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            raise RuntimeError(f"sharded psi with {name} disagrees with the "
+                               "dense psi")
+    print(f"  worst: psi rel err {worst[0]:.3e} (tol {TOL_PSI_REL:.0e}), "
+          f"force rel L2 err {worst[1]:.3e} (tol {TOL_GRAD_REL:.0e})")
+
+    # one minimal_norm_2 attempt from the same state and momenta
+    halo = tk.displacement_bound_cells(delta[0], g, mc.forward, gp)
+    hc = HMCConfig(eps_fac=1e-4, eps_fac_update_type=0, mass_type=1,
+                   N_eps_fac=8, N_a_eps_update=32,
+                   integrator="minimal_norm_2")
+    mass = mass_mod.compute_mass(g, 1, obs.power)
+    state_d = hmc_sampler.make_init(g, mc, gp, hc)(delta, obs)
+    randoms = hmc_sampler.draw_randoms(
+        torch.Generator(device=dev).manual_seed(9), g, hc, mass, 1)
+    _, st_d = hmc_sampler.make_attempt(g, mc, gp, hc)(state_d, obs, mass,
+                                                      randoms=randoms)
+    obs_sh = sfw.shard_obs(obs, layout)
+    s_loc = shard_real(delta, layout).contiguous()
+    (vals, aux), grads = sfw.make_sharded_psi_vg_chains(
+        g, mc, gp, layout, halo=halo)(s_loc, obs_sh)
+    state_s = ss.init_chain_state(s_loc, vals, aux, grads, [1],
+                                  [hc.eps_fac_start(g.N)], hc)
+    with torch.no_grad():
+        _, st_s = ss.make_sharded_attempt(g, mc, gp, hc, layout, halo=halo)(
+            state_s, obs_sh, sfw.power_to_sharded_layout(mass.mass_f, layout),
+            randoms=dataclasses.replace(randoms, momenta=shard_real(
+                randoms.momenta, layout)))
+    sync(dev)
+    errs = {k: abs(getattr(st_s, k)[0].item() - getattr(st_d, k)[0].item())
+            / abs(getattr(st_d, k)[0].item())
+            for k in ("psi_prior_f", "psi_likeli_f", "H_kin_f")}
+    print(f"  minimal_norm_2 attempt, Neps {int(st_d.Neps[0])}: sharded "
+          f"against dense rel err " + ", ".join(
+              f"{k} {v:.3e}" for k, v in errs.items())
+          + f" (tol {TOL_PSI_REL:.0e}); accepted {bool(st_s.accepted[0])} "
+          f"and {bool(st_d.accepted[0])}", flush=True)
+    if max(errs.values()) > TOL_PSI_REL:
+        raise RuntimeError("the sharded minimal_norm_2 attempt disagrees "
+                           "with the dense one")
+
+    for words, ffields in SHARDED_REFUSED.items():
+        fc_bad = dataclasses.replace(mc.forward, **ffields)
+        try:
+            sfw.make_sharded_psi_vg_chains(
+                g, dataclasses.replace(mc, forward=fc_bad), gp, layout,
+                halo=halo)
+        except ValueError as exc:
+            if words not in str(exc):
+                raise RuntimeError(f"{words}: the message does not name it: "
+                                   f"{exc}") from exc
+            print(f"  refused {words}: {exc}")
+            continue
+        raise RuntimeError(f"--sharded accepted {words}")
 
 
 MASS_CODES = (0, 1, 2, 3, "sph_ft")
@@ -2031,6 +2184,10 @@ def main(argv=None):
         phase_sharded_psi256(dev, runner)
         runner.close()
         del runner
+        clock.done()
+
+        clock.start("sharded_options")
+        phase_sharded_options(dev, model)
         clock.done()
 
         clock.start("cli256")

@@ -322,8 +322,9 @@ def test_bf16_sharded_forward_matches_jax(name):
     for bf16 in (False, True):
         fc = dataclasses.replace(tsf.port_fc(jfc), pallas_bf16_dep=bf16,
                                  pallas_bf16_grad=bf16)
-        psi_fn, grad_fn = sfw.make_sharded_psi(g, fc, tsf.GP, 1, layout,
-                                               halo=halo)
+        psi_fn, grad_fn = sfw.make_sharded_psi(
+            g, ModelConfig(likelihood=1, forward=fc), tsf.GP, layout,
+            halo=halo)
         out[bf16] = psi_fn(s, obs), grad_fn(s, obs).numpy()
     psi, grad = out[True]
     np.testing.assert_allclose(psi, psi_ref, rtol=tsf.PSI_RTOL)

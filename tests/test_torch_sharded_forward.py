@@ -26,6 +26,7 @@ from barcode_tpu_torch.forward import tsc_kernels as tk
 from barcode_tpu_torch.forward.lag2eul import ForwardConfig, GrowthParams
 from barcode_tpu_torch.grid.spec import GridSpec
 from barcode_tpu_torch.model.likelihoods import ObsData
+from barcode_tpu_torch.model.posterior import ModelConfig
 from barcode_tpu_torch.parallel import distributed as pd
 from barcode_tpu_torch.parallel import sharded_forward as sfw
 
@@ -87,6 +88,10 @@ def port_fc(jfc):
                          pallas_tail_k=jfc.pallas_tail_k)
 
 
+def port_mc(jfc, likelihood=1):
+    return ModelConfig(likelihood=likelihood, forward=port_fc(jfc))
+
+
 def assert_psi_grad(psi, grad, psi_ref, grad_ref):
     np.testing.assert_allclose(psi, psi_ref, rtol=PSI_RTOL)
     np.testing.assert_allclose(grad, grad_ref,
@@ -102,7 +107,7 @@ def test_sharded_psi_and_grad_at_one_rank(name):
     psi_ref, grad_ref = jax_psi_grad(jg, jfc, halo, a, 1)
     layout = pd.make_layout(1, 1, device="cpu")
     g = GridSpec.cube(jg.N1, jg.L1)
-    psi_fn, grad_fn = sfw.make_sharded_psi(g, port_fc(jfc), GP, 1, layout,
+    psi_fn, grad_fn = sfw.make_sharded_psi(g, port_mc(jfc), GP, layout,
                                            halo=halo)
     obs = sfw.shard_obs(ObsData(nobs=a["nobs"], window=a["window"],
                                 noise=a["noise"], power=a["power"]), layout)
@@ -124,7 +129,8 @@ def test_tail_split_without_tail_drops_mass():
     fc = ForwardConfig(sfmodel=1, masskernel="tsc", pallas_deposit=True,
                        pallas_halo=4, pallas_tail_k=0)
     layout = pd.make_layout(1, 1, device="cpu")
-    psi_fn, _ = sfw.make_sharded_psi(g, fc, GP, 1, layout, halo=4)
+    psi_fn, _ = sfw.make_sharded_psi(g, ModelConfig(likelihood=1, forward=fc),
+                                     GP, layout, halo=4)
     obs = sfw.shard_obs(ObsData(nobs=a["nobs"], window=a["window"],
                                 noise=a["noise"], power=a["power"]), layout)
     assert abs(psi_fn(torch.from_numpy(a["s"]), obs) - psi_ref) > 1.0

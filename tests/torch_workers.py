@@ -167,7 +167,9 @@ def psi_worker(rank, world, inp, tmp):
     for k in range(int(inp["n_cases"])):
         fc = _fc(inp, k)
         obs = _obs(inp, layout, f"c{k}_")
-        psi, grad = sfw.make_sharded_psi(g, fc, _gp(), 1, layout,
+        psi, grad = sfw.make_sharded_psi(g, ModelConfig(likelihood=1,
+                                                        forward=fc),
+                                         _gp(), layout,
                                          halo=int(inp[f"c{k}_halo"]))
         s_full = torch.from_numpy(inp[f"c{k}_s"])
         s = sf.shard_real(s_full, layout).contiguous()
@@ -190,6 +192,7 @@ def chains_worker(rank, world, inp, tmp):
     """make_sharded_psi_vg_chains on a rows x (world / rows) layout."""
     import torch
 
+    from barcode_tpu_torch.model.posterior import ModelConfig
     from barcode_tpu_torch.parallel import distributed as pd
     from barcode_tpu_torch.parallel import sharded_fft as sf
     from barcode_tpu_torch.parallel import sharded_forward as sfw
@@ -201,7 +204,8 @@ def chains_worker(rank, world, inp, tmp):
     out = {}
     for k in range(int(inp["n_cases"])):
         obs = _obs(inp, layout, f"c{k}_")
-        vg = sfw.make_sharded_psi_vg_chains(g, _fc(inp, k), _gp(), 1, layout,
+        mc = ModelConfig(likelihood=1, forward=_fc(inp, k))
+        vg = sfw.make_sharded_psi_vg_chains(g, mc, _gp(), layout,
                                             halo=int(inp[f"c{k}_halo"]))
         ids = layout.chain_ids
         batch = torch.from_numpy(inp[f"c{k}_batch"][ids.start:ids.stop])
@@ -290,8 +294,8 @@ def runner_worker(rank, world, inp, tmp):
     # 5. momenta: E[1/2 p M^-1 p] = (N - 1)/2 (the k = 0 mode is massless);
     # eps ~ 0, so every attempt accepts with dH ~ 0
     hc = dataclasses.replace(conf.hmc, eps_fac=1e-6, eps_fac_update_type=0)
-    att = ss.make_sharded_attempt(conf.grid, conf.model.forward, r.gp, 1, hc,
-                                  layout, halo=2)
+    att = ss.make_sharded_attempt(conf.grid, conf.model, r.gp, hc, layout,
+                                  halo=2)
     st = dict(r.state)
     st["eps_fac"] = torch.full_like(st["eps_fac"], 1e-6)
     kin, dh, acc = [], [], []
@@ -303,4 +307,39 @@ def runner_worker(rank, world, inp, tmp):
             acc.append(stats.accepted.numpy())
     out["kin"], out["kin_dh"], out["kin_acc"] = (np.stack(kin), np.stack(dh),
                                                  np.stack(acc))
+    return out
+
+
+def options_worker(rank, world, inp, tmp):
+    """The slab posterior with each case's likelihood, sfmodel and
+    delta_min (a TSC deposit without kernels) on a 1 x world layout."""
+    import torch
+
+    from barcode_tpu_torch.forward.lag2eul import (ForwardConfig,
+                                                   GrowthParams)
+    from barcode_tpu_torch.model.likelihoods import ObsData
+    from barcode_tpu_torch.model.posterior import ModelConfig
+    from barcode_tpu_torch.parallel import distributed as pd
+    from barcode_tpu_torch.parallel import sharded_fft as sf
+    from barcode_tpu_torch.parallel import sharded_forward as sfw
+
+    g = _grid(inp)
+    gp = GrowthParams(**{k[3:]: float(v) for k, v in inp.items()
+                         if k.startswith("gp_")})
+    layout = pd.make_layout(1, world, device="cpu")
+    s = sf.shard_real(torch.from_numpy(inp["s"]), layout)[None].contiguous()
+    out = {}
+    for k in range(int(inp["n_cases"])):
+        mc = ModelConfig(likelihood=int(inp[f"c{k}_likelihood"]),
+                         forward=ForwardConfig(
+                             sfmodel=int(inp[f"c{k}_sfmodel"]),
+                             masskernel="tsc", slength=20.0))
+        obs = sfw.shard_obs(ObsData(
+            **{key: torch.from_numpy(inp[f"c{k}_{key}"])
+               for key in ("nobs", "window", "noise", "power")},
+            delta_min=float(inp[f"c{k}_delta_min"])), layout)
+        vg = sfw.make_sharded_psi_vg_chains(g, mc, gp, layout,
+                                            halo=int(inp["halo"]))
+        (vals, _), grads = vg(s, obs)
+        out[f"c{k}_psi"], out[f"c{k}_grad"] = vals.numpy(), grads[0].numpy()
     return out
