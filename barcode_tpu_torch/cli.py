@@ -95,16 +95,18 @@ def open_session(args: argparse.Namespace):
         initialize_multihost(args.coordinator, args.num_processes,
                              args.process_id, device=args.device)
     conf = _load_conf(args)
+    # a resumed session's mock and initial-guess dumps are not written again
+    resume = args.resume or args.restart_iteration is not None
     if args.sharded:
         from barcode_tpu_torch.parallel.sharded_runner import ShardedRunner
         if args.chains:
             conf = dataclasses.replace(conf, n_chains=args.chains)
         runner = ShardedRunner(conf, out_dir=args.out, halo=args.halo,
-                               device=args.device).setup()
+                               device=args.device).setup(resume=resume)
         ckpt = "checkpoint_sharded.npz"
     else:
         runner = Runner(conf, out_dir=args.out, device=args.device)
-        runner.setup(n_chains=args.chains)
+        runner.setup(n_chains=args.chains, resume=resume)
         ckpt = "checkpoint.npz"
     if args.restart_iteration is not None and \
             not (runner.dir / ckpt).exists():
@@ -113,7 +115,7 @@ def open_session(args: argparse.Namespace):
         print(f"no {ckpt} — resuming from "
               f"deltaLAG_{args.restart_iteration} + performance-log replay")
         runner.restore_from_dumps(args.restart_iteration)
-    elif args.resume or args.restart_iteration is not None:
+    elif resume:
         runner.restore()
     return runner
 

@@ -47,12 +47,16 @@ def mass_state(fields: Mapping, device=None) -> MassState:
                      mass_r=_maybe_tensor(fields["mass_r"], device))
 
 
-def chain_state(fields: Mapping, device=None) -> ChainState:
+def chain_state(fields: Mapping, seeds, device=None) -> ChainState:
     """ChainState of C chains from the JAX ChainState's fields stacked over
-    chains (leading axis C).  The JAX PRNG key is dropped: the port draws
-    from a torch.Generator."""
-    out = {}
+    chains (leading axis C), chain c drawing from `seeds[c]`.  The JAX PRNG
+    key is dropped: a threefry key cannot become a torch generator, so the
+    chains carried across draw other values than the JAX chains would
+    (`hmc.randoms`)."""
+    out = {"seed": tensor(np.asarray(seeds, np.int64), device)}
     for f in dataclasses.fields(ChainState):
+        if f.name == "seed":
+            continue
         arr = np.array(fields[f.name])
         if arr.ndim == 0:
             arr = arr[None]
@@ -109,8 +113,9 @@ def sharded_chain_state(fields: Mapping, n_grid: int, col: int,
                         chains: range, seeds, device=None) -> dict:
     """This rank's state dict (parallel/sharded_sampler.py) from a JAX
     sharded chain state gathered to full arrays: the chains `chains`, the
-    x-slab `col` of delta and grad.  The JAX keys are dropped; `seeds`
-    gives this rank's chains their seeds (one per chain)."""
+    x-slab `col` of delta and grad.  The JAX keys are dropped (a threefry
+    key cannot become a torch generator); `seeds` gives this rank's chains
+    their seeds (one per chain)."""
     out = {}
     for k, v in fields.items():
         if k == "key_data":

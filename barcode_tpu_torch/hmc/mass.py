@@ -164,17 +164,30 @@ def kinetic(p, g: GridSpec, mass_type: int, mass: MassState):
     return 0.5 * torch.sum(p * apply_minv(p, g, mass_type, mass), dim=_GRID)
 
 
-def draw_momenta(generator: torch.Generator, g: GridSpec, mass_type: int,
-                 mass: MassState, batch: tuple = (), dtype=torch.float32):
-    """p ~ N(0, M) from `generator`: FS mass -> GRF with spectrum mass_f
-    (create_GARFIELD(mass_f), HMC_momenta.cc:52-54); RS mass ->
-    N(0, sqrt(mass_r)) per cell (:77-92); the sum if both."""
+def momenta_from_white(white_f, white_r, g: GridSpec, mass_type: int,
+                       mass: MassState):
+    """p ~ N(0, M) from unit white noise: FS mass -> `white_f` coloured to
+    the spectrum mass_f (create_GARFIELD(mass_f), HMC_momenta.cc:52-54);
+    RS mass -> sqrt(mass_r) * `white_r` per cell (:77-92); the sum if both.
+    The noise of a part the type lacks is not read (pass None)."""
     fs, rs = mass_flags(mass_type)  # every type has one part or both
-    p = random_fields.grf(generator, g, mass.mass_f, batch, dtype) \
-        if fs else None
+    p = random_fields.grf_from_white(white_f, g, mass.mass_f) if fs else None
     if rs:
-        m = torch.as_tensor(mass.mass_r, dtype=dtype, device=generator.device)
-        part = torch.sqrt(m) * random_fields.white_noise(generator, g, batch,
-                                                         dtype)
+        m = torch.as_tensor(mass.mass_r, dtype=white_r.dtype,
+                            device=white_r.device)
+        part = torch.sqrt(m) * white_r
         p = part if p is None else p + part
     return p
+
+
+def draw_momenta(generator: torch.Generator, g: GridSpec, mass_type: int,
+                 mass: MassState, batch: tuple = (), dtype=torch.float32):
+    """p ~ N(0, M) from `generator`: the FS part's noise first, then the RS
+    part's (`momenta_from_white`).  The samplers draw each chain's noise
+    from its own generators (`sampler.draw_randoms`); this one-generator
+    draw stays as the twin of the JAX package's public `draw_momenta`."""
+    fs, rs = mass_flags(mass_type)
+    noise = lambda: random_fields.white_noise(generator, g, batch, dtype)
+    white_f = noise() if fs else None
+    white_r = noise() if rs else None
+    return momenta_from_white(white_f, white_r, g, mass_type, mass)

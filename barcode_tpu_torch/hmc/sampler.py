@@ -15,6 +15,12 @@ package's masked fixed-length loop: all N_eps_fac steps run for every chain
 and steps j >= Neps leave a chain unchanged, so step counts are honest and
 the chains stay batched.  (psi, grad) of the current signal are cached in
 the ChainState.
+
+Each chain draws its attempt's randoms from its own generators, seeded by
+(ChainState.seed, attempt count, stream) through `hmc.randoms`, as the
+sharded sampler does; the dense sampler is grid rank 0.  So a chain's draws
+do not depend on the other chains in its batch, and a one-rank sharded
+chain of the same seed draws the same uniforms and white noise.
 """
 from __future__ import annotations
 
@@ -28,7 +34,7 @@ from barcode_tpu_torch.config import HMCConfig
 from barcode_tpu_torch.forward.lag2eul import GrowthParams
 from barcode_tpu_torch.model.likelihoods import ObsData
 from barcode_tpu_torch.model.posterior import ModelConfig, make_psi_force
-from barcode_tpu_torch.hmc import adapt, mass as mass_mod
+from barcode_tpu_torch.hmc import adapt, mass as mass_mod, randoms as rnd
 from barcode_tpu_torch.hmc.state import AttemptStats, ChainState, MassState
 
 # 2-stage minimal-norm (Omelyan/BCSS) splitting coefficient (sampler.py:70)
@@ -38,7 +44,7 @@ LAMBDA_MN2 = 0.1931833275037836
 @dataclasses.dataclass
 class AttemptRandoms:
     """The random draws of one attempt, one entry per chain.  The sampler
-    draws them from its generator; tests inject the JAX package's draws
+    draws them with `draw_randoms`; tests inject the JAX package's draws
     (its threefry split, sampler.py:116) to compare attempts exactly."""
 
     momenta: Any   # (C,) + grid: p0 ~ N(0, M)
@@ -47,24 +53,35 @@ class AttemptRandoms:
     u_acc: Any     # (C,) uniform [0, 1): Metropolis test
 
 
-def draw_randoms(generator: torch.Generator, g: GridSpec, hc: HMCConfig,
-                 mass: MassState, n_chains: int) -> AttemptRandoms:
-    p0 = mass_mod.draw_momenta(generator, g, hc.mass_type, mass, (n_chains,))
-    u = torch.rand((3, n_chains), generator=generator,
-                   device=generator.device)
-    return AttemptRandoms(p0, u[0], u[1], u[2])
+def draw_randoms(state: ChainState, g: GridSpec, hc: HMCConfig,
+                 mass: MassState) -> AttemptRandoms:
+    """The draws of the chains' next attempt, on the state's device: each
+    chain's uniforms and white noise from its (seed, count_attempts)
+    generators (`hmc.randoms`), the noise coloured in one batched call."""
+    keys = rnd.chain_keys(state.seed, state.count_attempts)
+    dev = state.delta.device
+    fs, rs = mass_mod.mass_flags(hc.mass_type)
+    white_f = rnd.white(keys, rnd.momentum_stream(0), g.shape, dev) \
+        if fs else None
+    white_r = rnd.white(keys, rnd.REAL_MASS_STREAM, g.shape, dev) \
+        if rs else None
+    p0 = mass_mod.momenta_from_white(white_f, white_r, g, hc.mass_type, mass)
+    u = rnd.uniforms(keys, dev)
+    return AttemptRandoms(p0, u[:, 0], u[:, 1], u[:, 2])
 
 
 def make_init(g: GridSpec, mc: ModelConfig, gp: GrowthParams, hc: HMCConfig):
-    """init(delta0 (C,)+grid, obs) -> ChainState of C chains."""
+    """init(delta0 (C,)+grid, obs, seeds) -> ChainState of C chains, chain c
+    drawing from seeds[c] (the JAX init's key)."""
 
-    def init(delta0, obs: ObsData) -> ChainState:
+    def init(delta0, obs: ObsData, seeds) -> ChainState:
         (psi, (pp, pl)), grad = make_psi_force(g, mc, gp, obs)(delta0)
         C, dev = delta0.shape[0], delta0.device
         n_a = hc.N_a_eps_update
         eps0 = hc.eps_fac_start(g.N)
         return ChainState(
             delta=delta0, psi=psi, psi_prior=pp, psi_like=pl, grad=grad,
+            seed=torch.as_tensor(seeds, dtype=torch.int64, device=dev),
             eps_fac=torch.full((C,), eps0, dtype=torch.float32, device=dev),
             acc_flags=torch.zeros((C, n_a), dtype=torch.int32, device=dev),
             # pre-filled with eps0 so the downward search never sees zeros
@@ -120,12 +137,11 @@ def leapfrog(vag, minv, carry0, eps, Neps, n_max: int,
 
 
 def make_attempt(g: GridSpec, mc: ModelConfig, gp: GrowthParams, hc: HMCConfig):
-    """attempt(state, obs, mass, generator=None, randoms=None) ->
-    (state', AttemptStats) over all chains of `state`."""
+    """attempt(state, obs, mass, randoms=None) -> (state', AttemptStats)
+    over all chains of `state`; `randoms` replaces the chains' own draws."""
     n_eps_max = int(hc.N_eps_fac)
 
     def attempt(state: ChainState, obs: ObsData, mass: MassState,
-                generator: torch.Generator | None = None,
                 randoms: AttemptRandoms | None = None):
         vag = make_psi_force(g, mc, gp, obs)
         C = state.delta.shape[0]
@@ -138,7 +154,7 @@ def make_attempt(g: GridSpec, mc: ModelConfig, gp: GrowthParams, hc: HMCConfig):
 
         # 2-3. momenta, trajectory length, step size (HMC.cc:260-264)
         if randoms is None:
-            randoms = draw_randoms(generator, g, hc, mass, C)
+            randoms = draw_randoms(state, g, hc, mass)
         p0 = randoms.momenta
         Neps = (randoms.u_neps * hc.N_eps_fac).to(torch.int32) + 1
         eps = torch.clamp(randoms.u_eps * eps_fac, max=2.0)
@@ -174,6 +190,7 @@ def make_attempt(g: GridSpec, mc: ModelConfig, gp: GrowthParams, hc: HMCConfig):
             psi_prior=_select(accept, pp_f, state.psi_prior),
             psi_like=_select(accept, pl_f, state.psi_like),
             grad=_select(accept, grad_f, state.grad),
+            seed=state.seed,
             eps_fac=eps_fac,
             acc_flags=acc_flags,
             eps_table=eps_table,
@@ -198,15 +215,14 @@ def make_attempt(g: GridSpec, mc: ModelConfig, gp: GrowthParams, hc: HMCConfig):
 
 def make_sampler(g: GridSpec, mc: ModelConfig, gp: GrowthParams, hc: HMCConfig,
                  n_attempts_per_call: int = 1):
-    """run(states, obs, mass, generator) -> (states, stats): a batch of
-    attempts; stats are (n_attempts, C) numpy arrays."""
+    """run(states, obs, mass) -> (states, stats): a batch of attempts;
+    stats are (n_attempts, C) numpy arrays."""
     attempt = make_attempt(g, mc, gp, hc)
 
-    def run(states: ChainState, obs: ObsData, mass: MassState,
-            generator: torch.Generator):
+    def run(states: ChainState, obs: ObsData, mass: MassState):
         records = []
         for _ in range(n_attempts_per_call):
-            states, stats = attempt(states, obs, mass, generator)
+            states, stats = attempt(states, obs, mass)
             records.append(stats)
         return states, AttemptStats.stack(records)
 

@@ -2,8 +2,9 @@
 
 Port of barcode_tpu/hmc/state.py.  The JAX package keeps one pytree per
 chain and vmaps it; here every field carries a leading chain dimension
-(C,) written out.  The JAX ChainState's PRNG key has no counterpart: the
-sampler draws from an explicit `torch.Generator` that the caller owns.
+(C,) written out.  Where the JAX ChainState keeps a PRNG key, each chain
+here keeps an integer seed: the sampler draws an attempt's randoms from
+generators seeded by (seed, attempt count, stream) (`hmc.randoms`).
 """
 from __future__ import annotations
 
@@ -24,6 +25,7 @@ class ChainState:
     psi_prior: Any
     psi_like: Any
     grad: Any           # (C,) + grid
+    seed: Any           # (C,) int64 per-chain seed (hmc.randoms)
     eps_fac: Any        # (C,) adaptive step-size scale
     acc_flags: Any      # (C, N_a) int32 circular acceptance table
     eps_table: Any      # (C, N_a) float32 circular epsilon table

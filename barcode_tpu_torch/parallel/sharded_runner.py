@@ -46,9 +46,11 @@ from barcode_tpu_torch.parallel import sharded_sampler as ss
 from barcode_tpu_torch.parallel.distributed import default_mesh
 from barcode_tpu_torch.parallel.sharded_fft import shard_real
 from barcode_tpu_torch.protocol import Protocols
-from barcode_tpu_torch.runner import (_host, append_perflog, initial_guess,
+from barcode_tpu_torch.runner import (_host, append_perflog, check_session,
+                                      dumped_digest, initial_guess,
                                       likelihood_force, load_power,
-                                      replay_perflog, warn_violations)
+                                      replay_perflog, session_digest,
+                                      warn_violations)
 from barcode_tpu_torch.utils.dashboard import Dashboard
 from barcode_tpu_torch.utils.metrics import (SamplerMetrics, check_finite,
                                              effective_sample_size, split_rhat)
@@ -83,6 +85,7 @@ class ShardedRunner:
         self.mass_f = None                # sharded FS mass spectrum
         self.attempt_batch = 16
         self.metrics: SamplerMetrics | None = None
+        self.digest: dict | None = None  # session_digest, set by setup()
         self._run = None
         self._vg = None
         self._perflog = None
@@ -140,19 +143,24 @@ class ShardedRunner:
 
     # -- setup --------------------------------------------------------------
 
-    def _write(self, name, field):
-        if self.is_main:
+    def _write(self, name, field, write=True):
+        if write and self.is_main:
             bio.write_array(self.dir / name, _host(field))
 
-    def _dump_spectrum(self, name, field):
+    def _dump_spectrum(self, name, field, write=True):
         km, pw, _ = fourier.measure_spectrum(field, self.g, self.conf.N_bin)
         km, pw = _host(km), _host(pw)
-        if self.is_main:
+        if write and self.is_main:
             bio.dump_spectrum(self.dir / name, km, pw)
         return km, pw
 
-    def setup(self):
+    def setup(self, resume: bool = False):
+        """Observations, halos, every chain's initial state and the mass.
+        `resume`: the directory holds a session that restore() or
+        restore_from_dumps() will go on with, so setup writes none of its
+        mock or initial-guess dumps again (`Runner.setup`)."""
         conf, g, gp, lay = self.conf, self.g, self.gp, self.layout
+        write = not resume
         fc = conf.model.forward
         power = load_power(conf, self.device)
         fc_mock = dataclasses.replace(fc, pallas_deposit=False)
@@ -166,9 +174,9 @@ class ShardedRunner:
                             ("deltaEULtest", md.truth_eul),
                             ("win", md.obs.window), ("nobs", md.obs.nobs),
                             ("sigma", md.obs.noise)):
-                self._write(name, f)
+                self._write(name, f, write)
             _, self._truth_spec = self._dump_spectrum("specLAGtest.dat",
-                                                      md.truth_lag)
+                                                      md.truth_lag, write)
         else:
             read = lambda name: torch.as_tensor(
                 bio.read_array(self.dir / name, g.shape), device=self.device)
@@ -204,8 +212,8 @@ class ShardedRunner:
             batch = initial_guess(conf, self.generator, power,
                                   self.dir).expand(
                 (self.n_chains,) + g.shape).contiguous()
-        self._write("initial_guess", batch[0])
-        self._dump_spectrum("spec_initial_guess.dat", batch[0])
+        self._write("initial_guess", batch[0], write)
+        self._dump_spectrum("spec_initial_guess.dat", batch[0], write)
         ids = lay.chain_ids
         local = shard_real(batch[ids.start:ids.stop], lay).contiguous()
 
@@ -221,6 +229,7 @@ class ShardedRunner:
         self._run = ss.make_sharded_sampler(
             g, conf.model, gp, conf.hmc, lay, halo=self.halo,
             n_attempts_per_call=self.attempt_batch)
+        self.digest = session_digest(self.obs, conf.model.forward.pallas_halo)
         return self
 
     def _compute_mass_f(self, signal=None):
@@ -414,8 +423,8 @@ class ShardedRunner:
 
     def checkpoint(self, path=None):
         """Gather every chain's full state to rank 0 and write
-        checkpoint_sharded.npz (+ .json: dump cursor, seed, mass marker);
-        then the restart marker.  Collective."""
+        checkpoint_sharded.npz (+ .json: dump cursor, seed, mass marker,
+        the session's digest); then the restart marker.  Collective."""
         path = Path(path or (self.dir / "checkpoint_sharded.npz"))
         arrs = {}
         for k, v in self.state.items():
@@ -426,7 +435,7 @@ class ShardedRunner:
             np.savez(path, **arrs)
             path.with_suffix(".json").write_text(json.dumps(
                 {"dump_cursor": self._dump_cursor, "seed": self.conf.seed,
-                 "mass_at_sample": self._mass_at_sample}))
+                 "mass_at_sample": self._mass_at_sample, **self.digest}))
             self._protocols.write_restart_marker(
                 int(arrs["state_accepted"].min()))
         dist.barrier()
@@ -434,10 +443,14 @@ class ShardedRunner:
 
     def restore(self, path=None):
         """Load a checkpoint written by `checkpoint` (after setup()); each
-        rank takes its chains and slabs."""
+        rank takes its chains and slabs.  A ValueError refuses a setup whose
+        observations or resolved pallas_halo differ from the session's, as
+        `Runner.restore` does (a checkpoint without the digest is not
+        checked)."""
         path = Path(path or (self.dir / "checkpoint_sharded.npz"))
         data = np.load(path)
         meta = json.loads(path.with_suffix(".json").read_text())
+        check_session(meta, self.digest, path)
         state = {k[len("state_"):]: data[k] for k in data.files
                  if k.startswith("state_")}
         if len(state["psi"]) != self.n_chains:
@@ -454,7 +467,10 @@ class ShardedRunner:
         sharded_runner.py:499-534): chain 0 resumes the dumped
         deltaLAG_<iteration> exactly, the other chains keep their setup
         guesses; psi and grads are recomputed through the sharded posterior;
-        the adaptive-eps state is replayed from performance_log.txt."""
+        the adaptive-eps state is replayed from performance_log.txt.  A
+        ValueError refuses a setup whose observations differ from the dumped
+        ones."""
+        check_session(dumped_digest(self.dir, self.g), self.digest, self.dir)
         s0 = torch.as_tensor(bio.read_array(self.dir / f"deltaLAG_{iteration}",
                                             self.g.shape), device=self.device)
         delta = self.state["delta"].clone()

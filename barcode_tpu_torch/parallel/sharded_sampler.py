@@ -14,13 +14,15 @@ group and the local batch.
 Scope: Fourier-space masses (`mass_f` in the sharded Fourier layout); the
 ShardedRunner gates on this.
 
-RNG: every chain carries a seed.  An attempt draws its scalars (trajectory
-length, step size, Metropolis uniform) from a generator seeded by (seed,
-attempt count), the same on every grid rank of the chain, and the slab's
-momentum noise from one seeded by (seed, attempt count, grid rank).  So the
-full-grid draw is well defined, and a checkpoint needs no generator state.
-The JAX package folds the device index into a threefry key instead: the
-two packages agree in distribution, not in value.
+RNG: every chain carries a seed, and an attempt draws through
+`hmc.randoms`, as the dense sampler does: its scalars (trajectory length,
+step size, Metropolis uniform) from the (seed, attempt count) stream 0, the
+same on every grid rank of the chain, and the slab's momentum noise from
+grid rank d's stream 1 + d.  So the full-grid draw is well defined, a
+checkpoint needs no generator state, and at one grid rank a chain draws
+what the dense sampler draws for it.  The JAX package folds the device
+index into a threefry key instead: the two packages agree in distribution,
+not in value.
 """
 from __future__ import annotations
 
@@ -30,7 +32,7 @@ import torch.distributed as dist
 from barcode_tpu_torch.grid.spec import GridSpec
 from barcode_tpu_torch.config import HMCConfig
 from barcode_tpu_torch.forward.lag2eul import GrowthParams
-from barcode_tpu_torch.hmc import adapt
+from barcode_tpu_torch.hmc import adapt, randoms as rnd
 from barcode_tpu_torch.hmc.sampler import AttemptRandoms, _select, leapfrog
 from barcode_tpu_torch.hmc.state import AttemptStats
 from barcode_tpu_torch.model.likelihoods import ObsData
@@ -39,26 +41,6 @@ from barcode_tpu_torch.parallel import sharded_fft as sf
 from barcode_tpu_torch.parallel.sharded_forward import (_check_halo,
                                                         _make_psi_local,
                                                         _value_and_grad)
-
-_MASK64 = (1 << 64) - 1
-
-
-def _mix(*words: int) -> int:
-    """splitmix64 over the words: a well-spread 63-bit generator seed."""
-    z = 0x9E3779B97F4A7C15
-    for w in words:
-        z = (z ^ (int(w) & _MASK64)) * 0xBF58476D1CE4E5B9 & _MASK64
-        z = (z ^ (z >> 27)) * 0x94D049BB133111EB & _MASK64
-        z ^= z >> 31
-    return z >> 1
-
-
-def attempt_generator(seed: int, count: int, stream: int, device):
-    """The generator of one (chain seed, attempt count, stream) triple;
-    stream 0 draws the chain's scalars, 1 + d grid rank d's momenta."""
-    gen = torch.Generator(device=device)
-    gen.manual_seed(_mix(seed, count, stream))
-    return gen
 
 
 def init_chain_state(delta_batch, psi_vals, psi_aux, grad_batch, seeds,
@@ -139,14 +121,10 @@ def make_sharded_attempt(g: GridSpec, mc: ModelConfig, gp: GrowthParams,
         # momenta p ~ N(0, M): slab-local white noise coloured by
         # sqrt(mass_f * N / V) through the sharded FFT
         if randoms is None:
-            seeds = state["seed"].tolist()
-            counts = state["count_attempts"].tolist()
-            u = torch.stack([torch.rand(3, generator=attempt_generator(
-                s, n, 0, dev), device=dev) for s, n in zip(seeds, counts)])
-            w = torch.stack([torch.randn((n1_loc, g.N2, g.N3),
-                                         generator=attempt_generator(
-                                             s, n, 1 + col, dev), device=dev)
-                             for s, n in zip(seeds, counts)])
+            keys = rnd.chain_keys(state["seed"], state["count_attempts"])
+            u = rnd.uniforms(keys, dev)
+            w = rnd.white(keys, rnd.momentum_stream(col),
+                          (n1_loc, g.N2, g.N3), dev)
             p0 = irfft(torch.sqrt(mass_f * (g.N / g.vol)) * rfft(w))
         else:
             u = torch.stack([randoms.u_neps, randoms.u_eps, randoms.u_acc],

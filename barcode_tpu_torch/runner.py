@@ -6,9 +6,12 @@ and barcode/main.cc.  Chains are batched on one device; chain 0's outputs
 use the reference's file names (deltaLAG_<i> etc.).
 
 Differences from the JAX runner:
-  * randomness comes from one `torch.Generator` seeded with conf.seed; the
-    checkpoint saves its state, and restores only on the device type that
-    wrote it (the generator states of CUDA and CPU differ);
+  * the setup (mock, initial guesses) draws from one `torch.Generator`
+    seeded with conf.seed; the attempts draw from each chain's own
+    counter-based generators (`hmc.randoms`), chain c seeded with
+    conf.seed + 1 + c, where the JAX runner splits a key per chain.  The
+    checkpoint therefore holds no generator state and restores on either
+    device type (see `Runner.restore`);
   * the checkpoint stores the chain state by field name instead of the JAX
     pytree's leaf order; the dumps and performance_log.txt keep the
     reference's formats, so a run dumped by the JAX package restarts here
@@ -17,6 +20,7 @@ Differences from the JAX runner:
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import json
 import time
 from pathlib import Path
@@ -52,6 +56,55 @@ PERFLOG_COLUMNS = [
 
 def _host(x) -> np.ndarray:
     return x.detach().cpu().numpy()
+
+
+DATA_DUMPS = ("nobs", "win", "sigma")  # the observations, as dumped
+
+
+def obs_sha256(fields) -> str:
+    """SHA-256 of observation fields as they are dumped (float32 bytes)."""
+    h = hashlib.sha256()
+    for x in fields:
+        x = _host(x) if isinstance(x, torch.Tensor) else x
+        h.update(memoryview(np.ascontiguousarray(x, dtype=np.float32))
+                 .cast("B"))
+    return h.hexdigest()
+
+
+def session_digest(obs: ObsData, pallas_halo) -> dict:
+    """What a checkpoint holds its session to: the digest of the
+    observations (nobs, win, sigma) and the resolved pallas_halo."""
+    return {"obs_sha256": obs_sha256((obs.nobs, obs.window, obs.noise)),
+            "pallas_halo": int(pallas_halo)}
+
+
+def dumped_digest(run_dir: Path, g) -> dict:
+    """The digest of the observations dumped in `run_dir` (an empty record
+    where one of them is missing)."""
+    paths = [Path(run_dir) / f"{n}.dat" for n in DATA_DUMPS]
+    if not all(p.exists() for p in paths):
+        return {}
+    return {"obs_sha256": obs_sha256(bio.read_array(p, g.shape)
+                                     for p in paths)}
+
+
+def check_session(recorded: dict, here: dict, source) -> None:
+    """Raise ValueError where the session recorded in `source` (a
+    checkpoint's .json, or the dumped observations) observed other data or
+    resolved another pallas_halo than this setup (`here`, session_digest).
+    A key `recorded` lacks is not checked."""
+    if recorded.get("obs_sha256", here["obs_sha256"]) != here["obs_sha256"]:
+        raise ValueError(
+            f"{source}: the session observed other data (nobs, win, sigma) "
+            "than this setup drew or read.  A mock drawn on the other "
+            "device type differs (the CPU and CUDA generators differ): "
+            "resume with `random_test = false`, which reads the session's "
+            "dumped nobs, win and sigma")
+    if recorded.get("pallas_halo", here["pallas_halo"]) != here["pallas_halo"]:
+        raise ValueError(
+            f"{source}: the session resolved pallas_halo = "
+            f"{recorded['pallas_halo']}, this setup {here['pallas_halo']}; "
+            f"set pallas_halo = {recorded['pallas_halo']} in input.par")
 
 
 def load_power(conf: RunConfig, device):
@@ -162,6 +215,7 @@ class Runner:
         self.mass = None
         self.attempt_batch = 16
         self.metrics: SamplerMetrics | None = None
+        self.digest: dict | None = None  # session_digest, set by setup()
         self._run = None
         self._perflog = None
         self._protocols = Protocols(self.dir)
@@ -223,11 +277,19 @@ class Runner:
 
     # -- setup ------------------------------------------------------------
 
-    def setup(self, n_chains: int | None = None):
+    def setup(self, n_chains: int | None = None, resume: bool = False):
+        """Observations (the mock, or the dumped nobs/win/sigma), the
+        resolved halo, the chains' initial state and the mass.  `resume`:
+        the directory holds a session that restore() or
+        restore_from_dumps() will go on with, so setup writes none of its
+        dumps again (powerero, the mock, the initial guess); a mock drawn
+        on the other device type then cannot overwrite them before the
+        restore refuses it."""
         conf = self.conf
         power = load_power(self.conf, self.device)
-        bio.write_array(self.dir / "powerero",
-                        _host(fourier.rfft_grid_to_full(power, self.g)))
+        if not resume:
+            bio.write_array(self.dir / "powerero",
+                            _host(fourier.rfft_grid_to_full(power, self.g)))
 
         fwd_mock = conf.model.forward
         if fwd_mock.pallas_deposit and fwd_mock.pallas_halo <= 0:
@@ -240,7 +302,7 @@ class Runner:
                                    delta_min=conf.delta_min)
             mock_mod.validate(md, conf.model.likelihood)
             self.obs, self.truth = md.obs, md.truth_lag
-            self._dump_mock(md)
+            self._dump_mock(md, write=not resume)
         else:
             read = lambda name: torch.as_tensor(
                 bio.read_array(self.dir / name, self.g.shape),
@@ -267,14 +329,20 @@ class Runner:
                                     self.dir).expand(
                 (n_chains,) + self.g.shape).contiguous()
         init = sampler.make_init(self.g, conf.model, self.gp, conf.hmc)
-        self.states = init(guesses, self.obs)
-        bio.write_array(self.dir / "initial_guess", _host(guesses[0]))
-        km, pw, _ = self._spectrum(guesses[0])
-        bio.dump_spectrum(self.dir / "spec_initial_guess.dat", _host(km),
-                          _host(pw))
+        # chain c's attempts draw from seed conf.seed + 1 + c, as the
+        # ShardedRunner's chains do
+        self.states = init(guesses, self.obs,
+                           [conf.seed + 1 + c for c in range(n_chains)])
+        if not resume:
+            bio.write_array(self.dir / "initial_guess", _host(guesses[0]))
+            km, pw, _ = self._spectrum(guesses[0])
+            bio.dump_spectrum(self.dir / "spec_initial_guess.dat", _host(km),
+                              _host(pw))
         self.mass = self._compute_mass()
         self._run = sampler.make_sampler(self.g, conf.model, self.gp, conf.hmc,
                                          n_attempts_per_call=self.attempt_batch)
+        # hashed once here, outside the sampling loop
+        self.digest = session_digest(self.obs, conf.model.forward.pallas_halo)
         return self
 
     def _compute_mass(self):
@@ -300,19 +368,24 @@ class Runner:
 
     # -- outputs ----------------------------------------------------------
 
-    def _dump_mock(self, md: mock_mod.MockData):
+    def _dump_mock(self, md: mock_mod.MockData, write: bool = True):
+        """The truth's spectrum, which the protocol rows compare with; with
+        `write`, the mock's fields and spectra."""
+        km, pw, _ = self._spectrum(md.truth_lag)
+        self._truth_spec = _host(pw)
+        if not write:
+            return
         for name, field in [("deltaLAGtest", md.truth_lag),
                             ("deltaEULtest", md.truth_eul),
                             ("win", md.obs.window), ("nobs", md.obs.nobs),
                             ("sigma", md.obs.noise)]:
             bio.write_array(self.dir / name, _host(field))
-        for name, field in [("specLAGtest", md.truth_lag),
-                            ("specEULtest", md.truth_eul),
+        bio.dump_spectrum(self.dir / "specLAGtest.dat", _host(km),
+                          self._truth_spec)
+        for name, field in [("specEULtest", md.truth_eul),
                             ("spec_nobs", md.obs.nobs)]:
             km, pw, _ = self._spectrum(field)
             bio.dump_spectrum(self.dir / f"{name}.dat", _host(km), _host(pw))
-            if name == "specLAGtest":
-                self._truth_spec = _host(pw)
 
     def dump_sample(self, iteration: int, chain: int = 0,
                     fields: bool = True, spectrum: bool = True):
@@ -363,8 +436,7 @@ class Runner:
             if (self.dir / "fastexit").exists():
                 print("fastexit sentinel found — stopping cleanly")
                 break
-            self.states, stats = self._run(self.states, self.obs, self.mass,
-                                           self.generator)
+            self.states, stats = self._run(self.states, self.obs, self.mass)
             attempts_done += self.attempt_batch
             self.metrics.update(stats)
             self._psi_trace.append(_host(self.states.psi))
@@ -456,38 +528,52 @@ class Runner:
 
     def checkpoint(self, path=None):
         """Write the full sampler state to checkpoint.npz (+ .json): every
-        ChainState tensor, the generator state, the dump cursor and the
-        mass marker (runner.py:479-498); then the restart marker."""
+        ChainState tensor (the chains' seeds and attempt counts among them,
+        so no generator state), the dump cursor, the mass marker
+        (runner.py:479-498) and the session's digest (`session_digest`:
+        its observations and resolved pallas_halo); then the restart
+        marker."""
         path = Path(path or (self.dir / "checkpoint.npz"))
         arrs = {f"state_{f.name}": _host(getattr(self.states, f.name))
                 for f in dataclasses.fields(ChainState)}
-        arrs["generator_state"] = self.generator.get_state().numpy()
         np.savez(path, **arrs)
         meta = {"conf_seed": self.conf.seed, "grid": [self.g.N1, self.g.L1],
-                "device_type": self.device.type,
                 # resume must not re-dump already-dumped samples
                 "dump_cursor": self._dump_cursor,
-                "mass_at_sample": self._mass_at_sample}
+                "mass_at_sample": self._mass_at_sample,
+                **self.digest}
         path.with_suffix(".json").write_text(json.dumps(meta))
         self._protocols.write_restart_marker(int(self.states.accepted.min()))
         return path
 
     def restore(self, path=None):
-        """Load a checkpoint written by `checkpoint` (after setup()).  It
-        restores on the device type that wrote it only: the generator states
-        of CUDA and CPU differ."""
+        """Load a checkpoint written by `checkpoint` (after setup()), on the
+        card or the CPU, whichever wrote it.  On the device type that wrote
+        it, sampling goes on bit for bit.  On the other one the chains go
+        on from the same state and attempt counts with valid draws, but
+        not the same values: the CPU and CUDA generators differ.  The
+        observations are not in the checkpoint, and a mock that setup()
+        draws on the other device type differs too: there, resume a mock
+        session with `random_test = false`, reading its dumped nobs, win
+        and sigma.  A ValueError refuses a setup whose observations or
+        resolved pallas_halo differ from the session's (its digest in the
+        .json), and a checkpoint of the older format (one runner-wide
+        `generator_state`, no per-chain `seed`)."""
         path = Path(path or (self.dir / "checkpoint.npz"))
         meta = json.loads(path.with_suffix(".json").read_text())
-        if meta["device_type"] != self.device.type:
-            raise ValueError(
-                f"{path} was written on {meta['device_type']}; it restores "
-                f"only there, not on {self.device.type} (the generator states "
-                "of CUDA and CPU differ)")
         data = np.load(path)
+        if "generator_state" in data.files or "state_seed" not in data.files:
+            raise ValueError(
+                f"{path} is a checkpoint of the older format, which saved "
+                "one runner-wide generator state (generator_state) and no "
+                "per-chain seed (state_seed); the chains now draw from "
+                "per-chain counter-based generators, so it cannot resume "
+                "them: restart from the dumps instead (`input.par <i>`, "
+                "restore_from_dumps)")
+        check_session(meta, self.digest, path)
         self.states = ChainState(**{
             f.name: torch.as_tensor(data[f"state_{f.name}"], device=self.device)
             for f in dataclasses.fields(ChainState)})
-        self.generator.set_state(torch.from_numpy(data["generator_state"]))
         self._dump_cursor = int(meta["dump_cursor"])
         self._mass_at_sample = int(meta["mass_at_sample"])
         return self
@@ -497,7 +583,10 @@ class Runner:
         barcoderunner.cc:284-344; runner.py:519-560): chain 0 resumes from
         the dumped deltaLAG_<iteration>, the other chains keep their initial
         guesses, and the adaptive-eps state is rebuilt by replaying
-        performance_log.txt."""
+        performance_log.txt.  The replayed attempt count is each chain's
+        counter, so its draws go on from where the log ends.  A ValueError
+        refuses a setup whose observations differ from the dumped ones."""
+        check_session(dumped_digest(self.dir, self.g), self.digest, self.dir)
         s0 = torch.as_tensor(bio.read_array(self.dir / f"deltaLAG_{iteration}",
                                             self.g.shape), device=self.device)
         delta = self.states.delta.clone()

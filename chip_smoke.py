@@ -51,6 +51,17 @@ Phases:
   6. path         the 128^3 Runner session, with the kernel launch counters
                   set to 0 just before it and checked against the expected
                   count after (K1 also runs in the deltaEUL/deltaRSS dumps)
+  6a. portable_checkpoint
+                  a 64^3 dense session on the card writes a checkpoint; the
+                  card resumes it bit for bit with the uninterrupted run, the
+                  CPU resumes it (the session's data read from its dumps)
+                  and writes one the card resumes; the command line's
+                  --resume on the CPU, whose mock differs, is refused and
+                  leaves the session's dumps as they were; a dense and a
+                  one-rank --sharded session of one chain at 128^3 take the
+                  same Neps and step sizes, and the same accept flags and
+                  psi (within 2e-5) up to a flip, after 3 equal attempts,
+                  that float32 rounding of H (4 ulp) explains
   7. kernels256   K1 at the 256^3 shapes (where the JAX package's gate
                   streams: K1s on the TPU) against its plain version and
                   itself, and with forced violators at 32^3 where the window
@@ -157,6 +168,7 @@ from barcode_tpu_torch.forward.lag2eul import (ForwardConfig,
 from barcode_tpu_torch.grid import fourier
 from barcode_tpu_torch.grid.spec import GridSpec
 from barcode_tpu_torch.hmc import mass as mass_mod
+from barcode_tpu_torch.hmc import randoms as rnd
 from barcode_tpu_torch.hmc import sampler as hmc_sampler
 from barcode_tpu_torch.model import likelihoods
 from barcode_tpu_torch.model.posterior import (ModelConfig, make_psi_force,
@@ -165,6 +177,7 @@ from barcode_tpu_torch.parallel import distributed as pdist
 from barcode_tpu_torch.parallel import sharded_forward as sfw
 from barcode_tpu_torch.parallel import sharded_sampler as ss
 from barcode_tpu_torch.parallel.sharded_fft import shard_real
+from barcode_tpu_torch.parallel.sharded_runner import ShardedRunner
 from barcode_tpu_torch.runner import Runner, likelihood_force
 
 BUDGET_S = 900.0          # hard stop; the run aims at half of its 1200 s
@@ -191,6 +204,10 @@ TOL_DEP_REL, TOL_GATHER_REL = 2e-6, 3e-5
 # psi: a float32 sum of N^3 terms (cuFFT vs pocketfft); grad psi:
 # ~30 float32 transforms through ALPT, compared as a relative L2 norm
 TOL_PSI_REL, TOL_GRAD_REL = 2e-5, 1e-3
+# dH of the dense and the one-rank --sharded session: a few float32
+# resolutions (ulp) of |H| (0.25 at |H| ~ 3.8e6 at 128^3); an accept flag
+# may part by that rounding only after MIN_EQUAL attempts of equal flags
+DH_ULPS, MIN_EQUAL = 4, 3
 
 
 def headline_conf(n_grid: int = N_GRID, seed: int = 1) -> RunConfig:
@@ -212,6 +229,7 @@ class Clock:
     def __init__(self):
         self.t0 = time.perf_counter()
         self.phase_t0 = self.t0
+        self.seconds = {}
 
     def start(self, name: str):
         self.name = name
@@ -221,6 +239,7 @@ class Clock:
     def done(self):
         now = time.perf_counter()
         total = now - self.t0
+        self.seconds[self.name] = now - self.phase_t0
         print(f"== phase {self.name} done in {now - self.phase_t0:.2f} s "
               f"(total {total:.1f} s of {BUDGET_S:.0f} s budget)", flush=True)
         if total > BUDGET_S:
@@ -532,6 +551,213 @@ def phase_path(dev, conf: RunConfig, tmp: str):
                                                   launches["K2"])):
         raise RuntimeError(f"kernel launches {launches} != {expected}")
     return launches, per_attempt
+
+
+PORTABLE_N = 64  # the portable checkpoint's grid: the CPU takes attempts too
+# dense against one-rank --sharded: 8 attempts at a step size whose dH
+# mostly exceeds the float32 resolution of H (0.25 at |H| ~ 3.8e6; the
+# headline's eps_fac 1e-4 gives |dH| below it at 128^3)
+SESSION_ATTEMPTS, SESSION_EPS = 8, 3e-4
+DATA_FILES = ("nobs", "win", "sigma")
+
+
+def _flags(states, first: int, n: int):
+    """Each chain's accept flags of attempts first .. first + n - 1 (their
+    slots of the circular table)."""
+    slots = [(first + i) % states.acc_flags.shape[1] for i in range(n)]
+    return states.acc_flags[:, slots].cpu().tolist()
+
+
+def _resumed(conf: RunConfig, out: Path, dev, ckpt: Path, data: Path | None,
+             attempts: int):
+    """A Runner on `dev` restored from `ckpt` that takes `attempts`
+    attempts.  With `data`, the session's observations are read from that
+    directory's dumps (input.par's `random_test = false`), as on another
+    device type, where a mock drawn from the setup generator differs."""
+    if data is not None:
+        out.mkdir(parents=True, exist_ok=True)
+        for name in DATA_FILES:
+            shutil.copy(data / f"{name}.dat", out / f"{name}.dat")
+        conf = dataclasses.replace(conf, mock=dataclasses.replace(
+            conf.mock, random_test=False))
+    runner = Runner(conf, out_dir=out, device=dev)
+    runner.attempt_batch = attempts
+    runner.setup(n_chains=N_CHAINS)
+    runner.restore(ckpt)
+    states = runner.run(n_samples=10**6, max_attempts=attempts, log=False)
+    sync(dev)
+    return runner, states
+
+
+def phase_portable_checkpoint(dev, tmp: str):
+    """A dense checkpoint moves between the card and the CPU (its chains
+    draw from per-chain counter-based generators, so it holds no generator
+    state), and a dense session and a one-rank --sharded session of one
+    chain take the same accept decisions."""
+    cpu = torch.device("cpu")
+    tmp = Path(tmp)
+    conf = headline_conf(PORTABLE_N)
+    t0 = time.perf_counter()
+    card = Runner(conf, out_dir=tmp / "card", device=dev)
+    card.attempt_batch = 2
+    card.setup(n_chains=N_CHAINS)
+    card.run(n_samples=10**6, max_attempts=2, log=False)
+    ckpt = card.checkpoint(tmp / "card" / "checkpoint.npz")
+    ref = card.run(n_samples=10**6, max_attempts=2, log=False)
+    sync(dev)
+    # another device type reads the session's data and its resolved halo
+    fwd = card.conf.model.forward
+    conf_read = dataclasses.replace(conf, model=dataclasses.replace(
+        conf.model, forward=fwd))
+    card.close()
+    # the command line's --resume on the CPU in the card's session
+    # (open_session: setup(resume=True), then restore): the CPU's generator
+    # draws another mock, so the restore is refused, and setup writes none
+    # of the session's dumps again
+    dumps = {p.name: p.read_bytes() for p in (tmp / "card").glob("*.dat")}
+    t_cli = time.perf_counter()
+    cli_cpu = Runner(conf, out_dir=tmp / "card", device=cpu)
+    cli_cpu.setup(n_chains=N_CHAINS, resume=True)
+    other_mock = cli_cpu.digest["obs_sha256"] != json.loads(
+        ckpt.with_suffix(".json").read_text())["obs_sha256"]
+    try:
+        cli_cpu.restore(ckpt)
+        refusal = None
+    except ValueError as e:
+        refusal = str(e)
+    cli_cpu.close()
+    after = {p.name: p.read_bytes() for p in (tmp / "card").glob("*.dat")}
+    rewritten = sorted(n for n in dumps.keys() | after.keys()
+                       if dumps.get(n) != after.get(n))
+    print(f"  --resume --device cpu in the card's session "
+          f"({time.perf_counter() - t_cli:.2f} s): the CPU's mock differs "
+          f"{other_mock}, refused {refusal is not None}"
+          f"{': ' + refusal.split(':', 1)[1][:80] if refusal else ''}...; "
+          f"of the session's {len(dumps)} .dat dumps rewritten {rewritten}")
+    if refusal is None or not other_mock or rewritten:
+        raise RuntimeError("a CPU --resume of the card's mock session was "
+                           "not refused, or it rewrote the session's dumps")
+    t1 = time.perf_counter()
+    same, same_states = _resumed(conf, tmp / "same", dev, ckpt, None, 2)
+    t2 = time.perf_counter()
+    on_cpu, cpu_states = _resumed(conf_read, tmp / "cpu", cpu, ckpt,
+                                  tmp / "card", 2)
+    t3 = time.perf_counter()
+    ckpt_cpu = on_cpu.checkpoint(tmp / "cpu" / "checkpoint.npz")
+    on_cpu.close()
+    back, back_states = _resumed(conf_read, tmp / "back", dev, ckpt_cpu,
+                                 tmp / "card", 2)
+    t4 = time.perf_counter()
+    same.close()
+    back.close()
+    bits = {f.name: torch.equal(getattr(same_states, f.name),
+                                getattr(ref, f.name))
+            for f in dataclasses.fields(ref)}
+    print(f"  {PORTABLE_N}^3, {N_CHAINS} chains, halo {fwd.pallas_halo}: card "
+          f"session of 2 + 2 attempts {t1 - t0:.2f} s; resumed on the card "
+          f"{t2 - t1:.2f} s, on the CPU {t3 - t2:.2f} s, the CPU's checkpoint "
+          f"on the card {t4 - t3:.2f} s (each with its setup)")
+    print(f"  attempts 3-4, accept flags per chain: card {_flags(ref, 2, 2)}"
+          f", card resumed {_flags(same_states, 2, 2)}, CPU resumed "
+          f"{_flags(cpu_states, 2, 2)}; the CPU's checkpoint on the card, "
+          f"attempts 5-6: {_flags(back_states, 4, 2)}")
+    print(f"  psi card {ref.psi.tolist()}, CPU {cpu_states.psi.tolist()}, "
+          f"back on the card {back_states.psi.tolist()}")
+    print(f"  card resume bit for bit with the uninterrupted card run: "
+          f"{all(bits.values())}"
+          f"{'' if all(bits.values()) else ' ' + str(bits)}")
+    finite = all(bool(torch.isfinite(s.psi).all() and
+                      torch.isfinite(s.delta).all())
+                  for s in (ref, cpu_states, back_states))
+    counts = [s.count_attempts.tolist() for s in (cpu_states, back_states)]
+    seeds = [s.seed.tolist() for s in (ref, cpu_states, back_states)]
+    print(f"  finite {finite}; attempt counts CPU {counts[0]}, back on the "
+          f"card {counts[1]}; seeds {seeds[0]}")
+    if not all(bits.values()):
+        raise RuntimeError("the card's resume differs from the "
+                           "uninterrupted card run")
+    if not finite or counts != [[4] * N_CHAINS, [6] * N_CHAINS] or \
+            seeds.count(seeds[0]) != 3:
+        raise RuntimeError("a cross-device resume did not go on from the "
+                           "checkpoint")
+
+    # dense against one-rank --sharded, one chain, from one input.par
+    par = tmp / "input.par"
+    par.write_text(INPUT_PAR_256.format(n=N_GRID, box=BOX, tail_k=1024))
+    conf128 = RunConfig.from_input_par(par)
+    conf128 = dataclasses.replace(conf128, hmc=dataclasses.replace(
+        conf128.hmc, eps_fac=SESSION_EPS))
+    logs, psi, times = {}, {}, {}
+    for name in ("dense", "sharded"):
+        t = time.perf_counter()
+        runner = (Runner if name == "dense" else ShardedRunner)(
+            conf128, out_dir=tmp / name, device=dev)
+        runner.attempt_batch = SESSION_ATTEMPTS
+        if name == "dense":
+            runner.setup(n_chains=1)
+        else:
+            runner.setup()
+        states = runner.run(n_samples=10**6, max_attempts=SESSION_ATTEMPTS)
+        runner.close()
+        sync(dev)
+        times[name] = time.perf_counter() - t
+        logs[name] = np.loadtxt(tmp / name / "performance_log.txt", ndmin=2)
+        psi[name] = float((states.psi if name == "dense"
+                           else states["psi"])[0])
+    start = {n: np.array_equal(bio.read_array(tmp / "dense" / n),
+                               bio.read_array(tmp / "sharded" / n))
+             for n in ("deltaLAGtest", "nobs", "initial_guess")}
+    d, s = logs["dense"], logs["sharded"]
+    n = SESSION_ATTEMPTS
+    # accept iff dH < -ln(u_acc): the chain's own uniforms, the same for both
+    keys = [(conf128.seed + 1, c) for c in range(n)]
+    u_acc = rnd.uniforms(keys, dev)[:, 2]
+    thr = -np.log(u_acc.double().cpu().numpy())
+    H = np.abs(d[:, 10] + d[:, 6] + d[:, 8])
+    dh_tol = DH_ULPS * np.spacing(H.astype(np.float32)).astype(np.float64)
+    dh_err = np.abs(d[:, 3] - s[:, 3])
+    # a flip that float32 rounding of H (about 4e6 at 128^3) explains: the
+    # two dH straddle the threshold and differ by at most DH_ULPS ulp of
+    # |H|, after MIN_EQUAL attempts of equal flags; the chains part there,
+    # so the sessions are compared up to that attempt
+    differ = np.flatnonzero(d[:, 0] != s[:, 0])
+    upto = int(differ[0]) + 1 if len(differ) else n
+    k = upto - 1
+    flip_ok = not len(differ) or (
+        k >= MIN_EQUAL and dh_err[k] <= dh_tol[k]
+        and min(d[k, 3], s[k, 3]) < thr[k] <= max(d[k, 3], s[k, 3]))
+    psi_i = {name: log[:upto, 6] + log[:upto, 8] for name, log in logs.items()}
+    psi_err = float(np.max(np.abs(psi_i["sharded"] - psi_i["dense"])
+                           / np.abs(psi_i["dense"])))
+    if not len(differ):
+        psi_err = max(psi_err, abs(psi["sharded"] - psi["dense"])
+                      / abs(psi["dense"]))
+    same_draws = d.shape == s.shape == (n, 12) and \
+        np.array_equal(d[:, 1:3], s[:, 1:3])
+    print(f"  {N_GRID}^3, one chain, eps_fac {SESSION_EPS}, {n} attempts: "
+          f"dense {times['dense']:.2f} s, --sharded {times['sharded']:.2f} s "
+          f"(each with its setup); the same deltaLAGtest, nobs, "
+          f"initial_guess: {start}")
+    print(f"  accept flags dense {d[:, 0].astype(int).tolist()}, sharded "
+          f"{s[:, 0].astype(int).tolist()}; Neps dense "
+          f"{d[:, 2].astype(int).tolist()}, sharded "
+          f"{s[:, 2].astype(int).tolist()}; epsilon equal "
+          f"{np.array_equal(d[:, 1], s[:, 1])}")
+    print(f"  dH dense {d[:, 3].tolist()}, sharded {s[:, 3].tolist()}, "
+          f"-ln(u_acc) {np.round(thr, 6).tolist()}; |H| {H.tolist()}")
+    note = "" if not len(differ) else (
+        f" (the flags part there: dH {d[k, 3]} and {s[k, 3]} about "
+        f"-ln(u_acc) {thr[k]:.6g}, {'' if flip_ok else 'NOT '}a float32 "
+        f"rounding of H after {MIN_EQUAL} attempts of equal flags: tol "
+        f"{DH_ULPS} ulp of |H|, {dh_tol[k]:.3g})")
+    print(f"  compared through attempt {upto}{note}: max dH diff "
+          f"{dh_err[:upto].max():.3g}; psi rel err "
+          f"{psi_err:.3e} (tol {TOL_PSI_REL:.0e}); final psi dense "
+          f"{psi['dense']} sharded {psi['sharded']}")
+    if not (all(start.values()) and same_draws and flip_ok
+            and psi_err <= TOL_PSI_REL):
+        raise RuntimeError("the one-rank --sharded session disagrees with "
+                           "the dense session")
 
 
 INPUT_PAR_256 = """\
@@ -1147,9 +1373,8 @@ def phase_sharded_options(dev, model: dict):
                    N_eps_fac=8, N_a_eps_update=32,
                    integrator="minimal_norm_2")
     mass = mass_mod.compute_mass(g, 1, obs.power)
-    state_d = hmc_sampler.make_init(g, mc, gp, hc)(delta, obs)
-    randoms = hmc_sampler.draw_randoms(
-        torch.Generator(device=dev).manual_seed(9), g, hc, mass, 1)
+    state_d = hmc_sampler.make_init(g, mc, gp, hc)(delta, obs, [9])
+    randoms = hmc_sampler.draw_randoms(state_d, g, hc, mass)
     _, st_d = hmc_sampler.make_attempt(g, mc, gp, hc)(state_d, obs, mass,
                                                       randoms=randoms)
     obs_sh = sfw.shard_obs(obs, layout)
@@ -2144,6 +2369,11 @@ def main(argv=None):
                                            tmp_dirs[-1])
         clock.done()
 
+        clock.start("portable_checkpoint")
+        tmp_dirs.append(tempfile.mkdtemp(prefix="chip_smoke_"))
+        phase_portable_checkpoint(dev, tmp_dirs[-1])
+        clock.done()
+
         clock.start("masskernels")
         phase_masskernels(dev, inputs)
         clock.done()
@@ -2221,6 +2451,9 @@ def main(argv=None):
                             launches_sh, launches_bf16)
         clock.done()
 
+        print(f"  portable_checkpoint "
+              f"{clock.seconds['portable_checkpoint']:.2f} s, the whole run "
+              f"{time.perf_counter() - clock.t0:.1f} s, on {smi}")
         print(smi)
         print(json.dumps({"kernels": rows}))
         print(json.dumps({"ok": True, "device": {

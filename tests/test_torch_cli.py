@@ -130,7 +130,7 @@ def session_resume_and_restart(tmp_path, capsys, input_par):
         .items() >= dumps1.items()
     assert (out / "deltaLAG_2.dat").exists()
     with open(tmp_path / "prof" / "trace.json") as f:
-        assert '"traceEvents"' in f.read(4096)  # a Chrome trace
+        assert "traceEvents" in json.load(f)  # a Chrome trace
 
     # restart from deltaLAG_2 + the performance log once the checkpoint is gone
     (out / "checkpoint.npz").unlink()

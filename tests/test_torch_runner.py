@@ -163,8 +163,9 @@ def test_convert_carries_jax_state_across():
                                                          "eps_table") else ()))
               for f in dataclasses.fields(JChainState)}
     fields["delta"] = rng.normal(size=(C,) + shape).astype(np.float32)
-    st = convert.chain_state(fields, device="cpu")
+    st = convert.chain_state(fields, [5, 6], device="cpu")
     assert st.delta.shape == (C,) + shape and st.acc_flags.shape == (C, 4)
+    assert st.seed.dtype == torch.int64 and st.seed.tolist() == [5, 6]
     fc = convert.forward_config(dict(dataclasses.asdict(
         ForwardConfig(pallas_halo=5)), pallas_bf16_grad=False))
     assert fc.pallas_halo == 5

@@ -42,7 +42,7 @@ def problem():
     g, mc, tobs = port_problem(jg, fc, obs)
     states = sampler.make_init(g, mc, GrowthParams(**GPD),
                                HMCConfig(**fields_of(jhc)))(
-        torch.from_numpy(np.array(d0)), tobs)
+        torch.from_numpy(np.array(d0)), tobs, [1, 2])
     return jg, gp, jmc, obs, states_j, g, mc, tobs, states
 
 

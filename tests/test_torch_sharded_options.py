@@ -229,9 +229,8 @@ def test_sharded_attempt_matches_the_dense_attempt(integrator):
     obs = ObsData(**{k: torch.from_numpy(v) for k, v in a.items()})
     mass = mass_mod.compute_mass(g, 1, obs.power)
     s0 = torch.from_numpy(fields()["s"])[None]
-    dense = sampler.make_init(g, mc, GP, hc)(s0, obs)
-    randoms = sampler.draw_randoms(torch.Generator().manual_seed(5), g, hc,
-                                   mass, 1)
+    dense = sampler.make_init(g, mc, GP, hc)(s0, obs, [5])
+    randoms = sampler.draw_randoms(dense, g, hc, mass)
     out_d, stats_d = sampler.make_attempt(g, mc, GP, hc)(
         dense, obs, mass, randoms=randoms)
 
